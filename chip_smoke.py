@@ -2,25 +2,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``Matcher(device="cuda").match_device``, on the
-walk-table tier at the size ``bench.py`` uses: 2,000 Snort-like patterns over
-a 128 MB random corpus and a 128 MB DEFCON-like corpus (text with 1.5%
-planted pattern bytes). Phases, each on lines of its own:
+Drives the port's main path, ``Matcher(device="cuda").match_device``, on
+both device tiers at full size:
+
+* walk-table tier (K1 sieve, K3 dense-block escape, K2 survivor walk):
+  2,000 Snort-like patterns (``bench.py``) over a 128 MB random corpus, a
+  128 MB DEFCON-like corpus (text with 1.5% planted pattern bytes) and a
+  16 MB mixed-density corpus (``tests/test_pallas_sieve.py``'s recipe at
+  full block size: one dense block in 16); the pattern ``aaaa`` over 100 MB
+  of ``a`` (every block dense) and 100 MB of ``b`` (no match), the
+  reference's Benchmark I corpora;
+* CSR tier (K1, then the CSR walk): 100,000 ClamAV-scale signatures
+  (``tools_bench_matrix.py``'s recipe) over 128 MB of printable text with
+  0.2% planted signature bytes.
+
+Phases, each on lines of its own:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the kernels from pfac_tpu_torch/csrc and print the build time;
 3. conformance example on the card (match and match_reduce);
-4. K1 (sieve kernel) vs its plain torch version on a 16 MB random slice:
-   match tile and survivor positions bit-equal;
-5. K2 (survivor walk) vs its plain torch version on the DEFCON survivors:
-   bit-equal;
-6. the main path on both 128 MB corpora, launch counts reset just before
-   it: equal in full to the port's plain pipeline on the card, and to the
-   numpy golden oracle (golden.match_edges_batch) on >= 16 MB of each;
-7. both kernels launched by the main path;
-8. CUDA-event times (median after warm-up) of K1, K2, their plain versions
-   and match_device end to end, and a torch.profiler breakdown of
-   match_device: device time by kernel and the device's busy share.
+4. set-up of both rulesets and all corpora (seconds, table sizes);
+5. every kernel against its plain torch version on the card, bit-equal:
+   K1 on a 16 MB random slice, K2 on the DEFCON-like survivors, the CSR
+   walk on the big corpus's survivors, K3 on the all-match and mixed
+   corpora;
+6. the main path on every corpus, launch counts reset just before it:
+   each result equal in full to the port's plain pipeline on the card, and
+   to the numpy golden oracle (golden.match_edges_batch) on >= 16 MB of
+   each corpus (>= 4 MB of the big-ruleset corpus, where the oracle is
+   slow); the escape taken on the all-match and mixed corpora;
+7. every kernel launched by the main path;
+8. CUDA-event times (median after warm-up) of each kernel and its plain
+   version, of match_device end to end on every corpus, of the all-match
+   corpus with the escape disarmed, and torch.profiler breakdowns.
 
 Then one JSON line of per-kernel results, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -39,7 +53,10 @@ import torch
 
 MB = 1 << 20
 CORPUS = 128 * MB
+BENCH1 = 100 * MB          # Benchmark I corpora
+MIXED = 16 * MB
 SLICE = 16 * MB
+BIG_SLICE = 4 * MB         # golden slice of the big-ruleset corpus
 GOLDEN_SECONDS = 20.0      # per corpus: widen the golden check while time allows
 
 
@@ -51,16 +68,39 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def defcon_like(rng, pats, n: int) -> np.ndarray:
-    """Printable text with ~1.5% of its bytes planted pattern copies."""
+def planted_text(rng, pats, n: int, share: float) -> np.ndarray:
+    """Printable text with `share` of its bytes planted pattern copies."""
     buf = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8).tobytes())
-    placed, budget = 0, int(n * 0.015)
+    placed, budget = 0, int(n * share)
     while placed < budget:
         p = pats[int(rng.integers(0, len(pats)))]
         off = int(rng.integers(0, n - len(p)))
         buf[off:off + len(p)] = p
         placed += len(p)
     return np.frombuffer(buf, dtype=np.uint8)
+
+
+def clamav_like_patterns(rng, k: int = 100_000) -> list[bytes]:
+    """tools_bench_matrix.py's big ruleset: lengths gamma(3, 18) + 8 clipped
+    to 8-200, uniform random bytes, deduplicated."""
+    lens = np.clip(rng.gamma(3.0, 18.0, size=k) + 8, 8, 200).astype(int)
+    raw = rng.integers(0, 256, size=int(lens.sum()), dtype=np.uint8)
+    ends = np.cumsum(lens)
+    return list(dict.fromkeys(raw[e - ln:e].tobytes()
+                              for e, ln in zip(ends, lens)))
+
+
+def mixed_density(rng, pats, n: int, block: int) -> np.ndarray:
+    """tests/test_pallas_sieve.py's mixed-density recipe at full block size:
+    random bytes, every 16th block all 'z' (dense for b"zzzz"), a pattern
+    planted every 177 bytes."""
+    d = rng.integers(0, 256, size=n, dtype=np.uint8)
+    for b0 in range(block, n, 16 * block):
+        d[b0:b0 + block] = ord("z")
+    for i in range(0, n - 250, 177):
+        p = pats[int(rng.integers(0, len(pats)))]
+        d[i:i + len(p)] = np.frombuffer(p, np.uint8)
+    return d
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -117,9 +157,10 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
-                 name: str) -> None:
-    """Golden oracle on successive 16 MB slices (each with its lookahead)
-    while the time budget lasts; at least one slice."""
+                 name: str, step: int = SLICE,
+                 seconds: float = GOLDEN_SECONDS) -> None:
+    """Golden oracle on successive `step`-byte slices (each with its
+    lookahead) while the time budget lasts; at least one slice."""
     from pfac_tpu.backends import golden
 
     res = result[: host.shape[0]].cpu().numpy()
@@ -127,13 +168,13 @@ def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
     t0 = time.perf_counter()
     off = 0
     while off < host.shape[0]:
-        end = min(off + SLICE, host.shape[0])
+        end = min(off + step, host.shape[0])
         want = golden.match_edges_batch(automaton, host[off:end + look])
         if not np.array_equal(res[off:end], want[: end - off]):
             bad = off + int(np.nonzero(res[off:end] != want[: end - off])[0][0])
             raise AssertionError(f"{name}: port != golden at position {bad}")
         off = end
-        if time.perf_counter() - t0 > GOLDEN_SECONDS:
+        if time.perf_counter() - t0 > seconds:
             break
     dt = time.perf_counter() - t0
     print(f"golden {name}: {off / MB:.0f} MB equal to match_edges_batch "
@@ -148,8 +189,11 @@ def main() -> int:
     import pfac_tpu_torch as pt
     from bench import snort_like_patterns
     from pfac_tpu_torch import _build
-    from pfac_tpu_torch.backends import pipeline, sieve, walk
+    from pfac_tpu_torch.backends import (block_walk, csr_walk, pipeline,
+                                         sieve, walk)
+    from pfac_tpu_torch.backends.csr_tables import build_csr_tables
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
+    from pfac_tpu_torch.backends.sieve_tables import SieveTables
 
     # 1. the card
     dev = torch.device("cuda:0")
@@ -163,7 +207,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.ARCH})")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.ARCH}, "
+          f"{len(_build.sources())} sources in parallel)")
 
     # 3. conformance on the card
     m = pt.Matcher([b"AB", b"ABG", b"BEDE", b"ED"], device="cuda")
@@ -174,7 +219,7 @@ def main() -> int:
         5, [0, 1, 2, 4, 6], [1, 3, 4, 4, 2])
     print("conformance: ok")
 
-    # the workload
+    # 4. set-up: the Snort workload (walk-table tier)
     t0 = time.perf_counter()
     pats = snort_like_patterns()
     a = pt.Automaton.from_patterns(pats)
@@ -182,7 +227,7 @@ def main() -> int:
     eng = m._engine()
     rng = np.random.default_rng(42)
     rand = rng.integers(0, 256, size=CORPUS, dtype=np.uint8)
-    defcon = defcon_like(rng, pats, CORPUS)
+    defcon = planted_text(rng, pats, CORPUS, 0.015)
     rand_d = torch.from_numpy(rand).to(dev)
     def_d = torch.from_numpy(defcon).to(dev)
     wt = eng.walk_tables
@@ -191,21 +236,63 @@ def main() -> int:
           f"{eng._sieve.arena.numel() * 4} + {eng._walk.arena.numel() * 4} "
           f"bytes; set-up {time.perf_counter() - t0:.1f} s")
 
-    # 4. K1 vs plain on a 16 MB random slice
+    # the big ruleset (CSR tier)
+    brng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    bpats = clamav_like_patterns(brng)
+    ab = pt.Automaton.from_patterns(bpats)
+    t_auto = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st_big = SieveTables.build(ab)
+    t_sieve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ct = build_csr_tables(ab)
+    t_csr = time.perf_counter() - t0
+    print(f"big ruleset: {len(bpats)} patterns, max_len {ab.max_pattern_len}; "
+          f"automaton {t_auto:.1f} s; sieve tables {t_sieve:.1f} s, "
+          f"{st_big.vmem_bytes} bytes (reference layout); CSR tables "
+          f"{t_csr:.1f} s, {ct.table_bytes / 1e6:.1f} MB, {len(ct.steps)} "
+          f"steps, max chain {max(s.chain for s in ct.steps)}, entry width "
+          f"{ct.entry_width}")
+    t0 = time.perf_counter()
+    mb = pt.Matcher(automaton=ab, device="cuda")
+    engb = mb._engine()
+    assert engb.walk_tables is None and engb.csr_tables is not None
+    big = planted_text(brng, bpats, CORPUS, 0.002)
+    big_d = torch.from_numpy(big).to(dev)
+    print(f"big ruleset engine: sieve arena {engb._sieve.arena.numel() * 4} "
+          f"bytes, CSR arena {engb._csr.arena.numel() * 4} bytes; engine + "
+          f"corpus {time.perf_counter() - t0:.1f} s")
+
+    # Benchmark I and the mixed-density corpus (walk-table tier + escape)
+    m1 = pt.Matcher([b"aaaa"], device="cuda")
+    eng1 = m1._engine()
+    all_a = np.full(BENCH1, ord("a"), np.uint8)
+    all_b = np.full(BENCH1, ord("b"), np.uint8)
+    a_d = torch.from_numpy(all_a).to(dev)
+    b_d = torch.from_numpy(all_b).to(dev)
+    mpats = pats + [b"zzzz", b"zzzzzzzz"]
+    mm = pt.Matcher(mpats, device="cuda")
+    engm = mm._engine()
+    block = engm.tile_rows * 128
+    mixed = mixed_density(np.random.default_rng(3), mpats, MIXED, block)
+    mix_d = torch.from_numpy(mixed).to(dev)
+
+    # 5. each kernel against its plain version
     sl = rand_d[:SLICE]
     npad_s = npad_for(SLICE)
-    mk, fk = sieve.sieve(sl, SLICE, npad_s, eng._sieve)
-    mp, fp = sieve.sieve_plain(sl, SLICE, npad_s, eng._sieve)
-    k1_err = max_abs_err(mk, mp)
-    assert k1_err == 0 and torch.equal(mk, mp), "K1 match tile != plain"
+    mk, fk, ck = sieve.sieve(sl, SLICE, npad_s, eng._sieve)
+    mp, fp, cp = sieve.sieve_plain(sl, SLICE, npad_s, eng._sieve)
+    k1_err = max(max_abs_err(mk, mp), max_abs_err(ck, cp))
+    assert k1_err == 0 and torch.equal(mk, mp) and torch.equal(ck, cp), \
+        "K1 != plain"
     sk, sp = sieve.compact(fk), sieve.compact(fp)
     assert torch.equal(sk, sp), "K1 survivors != plain"
     print(f"K1 vs plain: {SLICE // MB} MB random slice bit-equal "
-          f"({sk.numel()} survivors)")
+          f"({sk.numel()} survivors, per-block counts equal)")
 
-    # 5. K2 vs plain on the DEFCON-like survivors
     npad = npad_for(CORPUS)
-    base, flags = sieve.sieve(def_d, CORPUS, npad, eng._sieve)
+    base, flags, _ = sieve.sieve(def_d, CORPUS, npad, eng._sieve)
     surv = sieve.compact(flags)
     out_k = base.clone()
     walk.walk(def_d, CORPUS, surv, out_k, eng._walk)
@@ -216,24 +303,77 @@ def main() -> int:
     print(f"K2 vs plain: DEFCON-like {CORPUS // MB} MB, {surv.numel()} survivors "
           f"bit-equal ({int((out_k != base).sum())} deep matches)")
 
-    # 6. the main path, counted
+    bbase, bflags, _ = sieve.sieve(big_d, CORPUS, npad, engb._sieve)
+    bsurv = sieve.compact(bflags)
+    bout_k = bbase.clone()
+    csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr)
+    bout_p = bbase.clone()
+    csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p, engb._csr)
+    k4_err = max_abs_err(bout_k, bout_p)
+    assert k4_err == 0 and torch.equal(bout_k, bout_p), "CSR walk != plain"
+    print(f"CSR walk vs plain: big-ruleset {CORPUS // MB} MB, {bsurv.numel()} "
+          f"survivors bit-equal ({int((bout_k != bbase).sum())} deep matches)")
+
+    k3_err = 0
+    k3_inputs = {}
+    for nm, d, e in (("all_match", a_d, eng1), ("mixed", mix_d, engm)):
+        n = d.shape[0]
+        npd = npad_for(n)
+        base3, flags3, counts3 = sieve.sieve(d, n, npd, e._sieve)
+        esc = block_walk.escaped_blocks(counts3, npd)
+        mk3, fk3 = base3.clone(), flags3.clone()
+        block_walk.block_walk(d, n, counts3, mk3, fk3, e._walk)
+        mp3, fp3 = base3.clone(), flags3.clone()
+        block_walk.block_walk_plain(d, n, counts3, mp3, fp3, e._walk)
+        err = max(max_abs_err(mk3, mp3), max_abs_err(fk3, fp3))
+        assert err == 0 and torch.equal(mk3, mp3) and torch.equal(fk3, fp3), \
+            f"K3 != plain on {nm}"
+        k3_err = max(k3_err, err)
+        k3_inputs[nm] = (d, n, counts3, base3, flags3, e)
+        print(f"K3 vs plain: {nm} {n // MB} MB, {esc} of {counts3.numel()} "
+              f"blocks escaped, bit-equal ({int((mk3 != base3).sum())} deep "
+              f"matches)")
+    del mk, mp, fk, fp, out_p, bout_p, mp3, fp3
+    torch.cuda.empty_cache()
+
+    # 6. the main path on every corpus, counted
+    corpora = [
+        ("random", m, rand_d, rand, SLICE, GOLDEN_SECONDS),
+        ("defcon_like", m, def_d, defcon, SLICE, GOLDEN_SECONDS),
+        ("big_ruleset", mb, big_d, big, BIG_SLICE, 0.0),
+        ("all_match", m1, a_d, all_a, SLICE, 0.0),
+        ("no_match", m1, b_d, all_b, SLICE, 0.0),
+        ("mixed", mm, mix_d, mixed, SLICE, 0.0),
+    ]
     torch.cuda.synchronize()
     sieve.LAUNCHES = walk.LAUNCHES = 0
-    res_rand = m.match_device(rand_d)
-    res_def = m.match_device(def_d)
+    block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+    results = [mt.match_device(d) for _, mt, d, _, _, _ in corpora]
     torch.cuda.synchronize()
-    launches = {"sieve_kernel": sieve.LAUNCHES, "walk_kernel": walk.LAUNCHES}
+    launches = {"sieve_kernel": sieve.LAUNCHES, "walk_kernel": walk.LAUNCHES,
+                "block_walk_kernel": block_walk.LAUNCHES,
+                "csr_walk_kernel": csr_walk.LAUNCHES}
     print(f"main path launches: {json.dumps(launches)}")
-    for nm, res, d, host in (("random", res_rand, rand_d, rand),
-                             ("defcon_like", res_def, def_d, defcon)):
-        assert res.dtype == torch.int32 and res.shape[0] == npad
-        plain = pipeline.run(d, CORPUS, npad, eng._sieve, eng._walk,
+    for (nm, mt, d, host, step, secs), res in zip(corpora, results):
+        e = mt._engine()
+        n = d.shape[0]
+        npd = npad_for(n)
+        assert res.dtype == torch.int32 and res.shape[0] == npd
+        plain = pipeline.run(d, n, npd, e._sieve, e._walk, e._csr,
                              plain=True)
         assert torch.equal(res, plain), f"{nm}: match_device != plain"
-        assert not res[CORPUS:].any()
-        print(f"main path {nm}: {CORPUS // MB} MB equal to the plain pipeline; "
-              f"{int((res > 0).sum())} matching positions")
-        golden_check(a, host, res, nm)
+        assert not res[n:].any()
+        del plain
+        esc = 0
+        if e._walk is not None:
+            _, _, cnt = sieve.sieve(d, n, npd, e._sieve)
+            esc = block_walk.escaped_blocks(cnt, npd)
+        print(f"main path {nm}: {n // MB} MB equal to the plain pipeline; "
+              f"{int((res > 0).sum())} matching positions; {esc} blocks "
+              f"escaped")
+        if nm in ("all_match", "mixed"):
+            assert esc > 0, f"{nm}: the escape was not taken"
+        golden_check(mt.automaton, host, res, nm, step, secs)
 
     # 7. every kernel of the path ran
     assert all(v > 0 for v in launches.values()), launches
@@ -243,22 +383,57 @@ def main() -> int:
     k1_plain = cuda_ms(
         lambda: sieve.sieve_plain(rand_d, CORPUS, npad, eng._sieve),
         reps=3, warmup=1)
-    # the walk only writes deep matches, so repeating it on one buffer
+    k1_big = cuda_ms(lambda: sieve.sieve(big_d, CORPUS, npad, engb._sieve))
+    # the walks only write deep matches, so repeating one on one buffer
     # repeats the same work and leaves the same result
     k2_ms = cuda_ms(lambda: walk.walk(def_d, CORPUS, surv, out_k, eng._walk))
+    out_p = base.clone()
     k2_plain = cuda_ms(
         lambda: walk.walk_plain(def_d, CORPUS, surv, out_p, eng._walk),
         reps=3, warmup=1)
     assert torch.equal(out_k, out_p)
+    k4_ms = cuda_ms(
+        lambda: csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr))
+    bout_p = bbase.clone()
+    k4_plain = cuda_ms(
+        lambda: csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p,
+                                        engb._csr), reps=3, warmup=1)
+    assert torch.equal(bout_k, bout_p)
+    d, n, counts3, base3, flags3, e = k3_inputs["all_match"]
+    mk3, fk3 = base3.clone(), flags3.clone()
+    k3_ms = cuda_ms(lambda: block_walk.block_walk(d, n, counts3, mk3, fk3,
+                                                  e._walk))
+    mp3, fp3 = base3.clone(), flags3.clone()
+    k3_plain = cuda_ms(lambda: block_walk.block_walk_plain(
+        d, n, counts3, mp3, fp3, e._walk), reps=3, warmup=1)
+    assert torch.equal(mk3, mp3)
+    del mk3, mp3, fk3, fp3
+    torch.cuda.empty_cache()
     print(f"time K1 sieve_kernel {CORPUS // MB} MB random: {k1_ms:.4f} ms "
           f"(plain {k1_plain:.3f} ms)  [{name_limit}]")
+    print(f"time K1 sieve_kernel {CORPUS // MB} MB big-ruleset "
+          f"({engb._sieve.arena.numel() * 4} B arena): {k1_big:.4f} ms  "
+          f"[{name_limit}]")
     print(f"time K2 walk_kernel {surv.numel()} DEFCON-like survivors: "
           f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms)  [{name_limit}]")
-    for nm, d in (("random", rand_d), ("defcon_like", def_d)):
-        ms = cuda_ms(lambda: m.match_device(d))
-        print(f"time match_device {nm} {CORPUS // MB} MB: {ms:.4f} ms = "
-              f"{CORPUS / ms / 1e6:.2f} GB/s  [{name_limit}]")
-        breakdown(nm, lambda: m.match_device(d))
+    print(f"time K3 block_walk_kernel all-match {BENCH1 // MB} MB "
+          f"({block_walk.escaped_blocks(counts3, npad_for(n))} blocks): "
+          f"{k3_ms:.4f} ms (plain {k3_plain:.3f} ms)  [{name_limit}]")
+    print(f"time csr_walk_kernel {bsurv.numel()} big-ruleset survivors: "
+          f"{k4_ms:.4f} ms (plain {k4_plain:.3f} ms)  [{name_limit}]")
+    for nm, mt, d, _, _, _ in corpora:
+        ms = cuda_ms(lambda: mt.match_device(d))
+        n = d.shape[0]
+        print(f"time match_device {nm} {n // MB} MB: {ms:.4f} ms = "
+              f"{n / ms / 1e6:.2f} GB/s  [{name_limit}]")
+    ms = cuda_ms(lambda: pipeline.run(a_d, BENCH1, npad_for(BENCH1),
+                                      eng1._sieve, eng1._walk, escape=False))
+    print(f"time all_match {BENCH1 // MB} MB escape disarmed (K2 over every "
+          f"survivor): {ms:.4f} ms = {BENCH1 / ms / 1e6:.2f} GB/s  "
+          f"[{name_limit}]")
+    for nm, mt, d in (("random", m, rand_d), ("defcon_like", m, def_d),
+                      ("big_ruleset", mb, big_d), ("all_match", m1, a_d)):
+        breakdown(nm, lambda: mt.match_device(d))
 
     print(json.dumps({"kernels": [
         {"name": "sieve_kernel", "route": "cuda",
@@ -271,6 +446,16 @@ def main() -> int:
          "replaces": "pfac_tpu/backends/pallas_walk.py:360",
          "launches": launches["walk_kernel"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "block_walk_kernel", "route": "cuda",
+         "source": "pfac_tpu_torch/csrc/walk.cu",
+         "replaces": "pfac_tpu/backends/pallas_sieve.py:678",
+         "launches": launches["block_walk_kernel"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain},
+        {"name": "csr_walk_kernel", "route": "cuda",
+         "source": "pfac_tpu_torch/csrc/csr_walk.cu",
+         "replaces": "pfac_tpu/backends/pallas_walk.py:664",
+         "launches": launches["csr_walk_kernel"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

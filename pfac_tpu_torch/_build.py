@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface and are compiled by ``nvcc`` into one
+The kernels have a plain C interface. Each source is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
 shared library, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libpfac_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o _build/<source>.o csrc/<source>.cu   # each
+    nvcc -shared -o _build/libpfac_kernels.so _build/*.o
 
 The build runs at first use, once per process (lock + cache, as
 ``pfac_tpu.core.native`` does for its host library), into ``_build/`` beside
@@ -32,10 +34,16 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
 _SIGNATURES = {
-    # device, data, n, npad, arena, desc, match, flags, stream
-    "pfac_sieve": [ctypes.c_int, _P, _I, _I, _P, _P, _P, _P, _P],
+    # device, data, n, npad, arena, desc, match, flags, counts, block, stream
+    "pfac_sieve": [ctypes.c_int, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    # device, data, n, counts, nblocks, block, thresh, arena, desc, nsteps,
+    # out, flags, stream
+    "pfac_block_walk": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _P, _P, _I,
+                        _P, _P, _P],
+    # device, data, n, pos, count, arena, desc, nsteps, out, stream
+    "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
 }
 
 
@@ -67,17 +75,41 @@ def build(verbose: bool = False) -> str:
     if not _stale():
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
+    flags = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        flags.append("-Xptxas=-v")
+    procs = [subprocess.Popen([nvcc(), *flags, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources(), objs)]
+    try:
+        logs = []
+        for src, proc in zip(sources(), procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} "
+                                   f"({proc.returncode}):\n{err}")
+            logs.append(err)
+        tmp = f"{LIB}.{tag}"
+        res = subprocess.run([nvcc(), "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, LIB)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, LIB)
+        print("".join(logs), end="")
     return LIB
 
 

@@ -3,9 +3,11 @@
 ``from_jax_tables(sieve_tables, walk_tables)`` takes
 ``pfac_tpu.backends.pallas_sieve.SieveTables`` and
 ``pfac_tpu.backends.pallas_walk.WalkTables`` objects and returns the port's
-``SieveTables`` / ``WalkTables``. The objects are read as plain attributes
-and numpy arrays, so this module imports no JAX. The tests use it to show
-that both packages hold the same tables and so compute the same thing.
+``SieveTables`` / ``WalkTables``; ``from_jax_csr_tables`` takes a
+``pfac_tpu.backends.xla_csr.CsrTables`` and returns the port's
+``CsrTables``. The objects are read as plain attributes and numpy arrays,
+so this module imports no JAX. The tests use it to show that both packages
+hold the same tables and so compute the same thing.
 
 Each reference table is a stack of (8, 128) planes whose 8 sublanes are
 replicas; ``planes[::8].reshape(-1)[:size]`` recovers the flat words. Packed
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .csr_tables import CsrStep, CsrTables
 from .probe import FlatProbe
 from .sieve_tables import SieveTables, unpack_u16
 from .walk_tables import Step, WalkTables
@@ -104,3 +107,15 @@ def from_jax_tables(sieve_tables, walk_tables=None):
         vmem_bytes=int(walk_tables.vmem_bytes),
     )
     return st, wt
+
+
+def from_jax_csr_tables(t) -> CsrTables:
+    """-> the port's CsrTables. The CSR rows are flat int32 in both
+    packages; only the keys-only filter rows (``fkeys``) stay behind."""
+    entry = np.asarray(t.entry_rows, np.int32)
+    steps = [CsrStep(depth=int(s.depth), rows=np.asarray(s.rows, np.int32),
+                     chain=int(s.chain)) for s in t.steps]
+    return CsrTables(
+        entry_rows=entry, entry_lgb=int(t.entry_lgb),
+        entry_width=int(t.entry_width), steps=steps, max_len=int(t.max_len),
+        table_bytes=4 * (entry.size + sum(s.rows.size for s in steps)))

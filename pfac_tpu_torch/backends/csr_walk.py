@@ -1,0 +1,105 @@
+"""CSR walk: the counterpart of kernel K4 with the walk around it, and its
+plain torch version.
+
+The kernel (``csrc/csr_walk.cu``) replaces the Pallas word-align kernel
+``pfac_tpu.backends.pallas_walk._make_align_kernel`` together with the XLA
+CSR walk of ``pfac_tpu.backends.xla_csr`` (``_entry_probe``,
+``_probe_step``). One thread walks one survivor position over the CSR tables
+(``csr_tables.py``) and writes ``out[pos] = id`` of the longest match of
+>= 4 bytes, only where there is one; the result equals
+``xla_csr.csr_oracle_walk`` at every position.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .csr_tables import _NEXT_MASK, ENTRY_MUL, W_ENTRIES
+from .probe import Packed, mul32, unsigned
+from .walk import _check
+
+#: CSR walk launches since the count was last reset (only where it runs)
+LAUNCHES = 0
+
+
+def csr_walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
+             tabs: Packed) -> None:
+    """Walk every position in `pos` (each < n) and write the longest match
+    of >= 4 bytes into `out` in place. A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel."""
+    _check(data, n, pos, out, tabs)
+    if data.device.type == "cpu":
+        return csr_walk_plain(data, n, pos, out, tabs)
+    if data.device.type != "cuda":
+        raise ValueError(f"no CSR walker for device {data.device}")
+    if pos.shape[0] == 0:
+        return None
+    global LAUNCHES
+    lib = _build.load()
+    rc = lib.pfac_csr_walk(
+        data.device.index or 0, data.data_ptr(), n,
+        pos.data_ptr(), pos.shape[0],
+        tabs.arena.data_ptr(), tabs.desc.data_ptr(), len(tabs.rows) - 1,
+        out.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+    LAUNCHES += 1
+    _build.check(rc, "csr_walk_kernel")
+    return None
+
+
+def csr_walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
+                   out: torch.Tensor, tabs: Packed) -> None:
+    """Plain torch version of the CSR walk, on the data's device: int64
+    arithmetic, keys compared as uint32."""
+    a = unsigned(tabs.arena)
+    p = pos.to(torch.int64)
+    maxd = n - p
+
+    def word(j: int) -> torch.Tensor:
+        w = torch.zeros_like(p)
+        for k in range(4):
+            q = torch.clamp(p + j + k, max=max(n - 1, 0))
+            w = (w << 8) | torch.where(maxd > j + k, data[q].to(torch.int64), 0)
+        return w
+
+    entry_off, lgb, width, _ = tabs.rows[0]
+    key4 = word(0)
+    base = entry_off + (mul32(key4, ENTRY_MUL) >> (32 - lgb)) * 3 * width
+    state = torch.zeros_like(p)
+    match = torch.zeros_like(p)
+    found = maxd < 4
+    for j in range(width):
+        meta = a[base + 3 * j + 1]
+        hit = ~found & (meta >> 28 == 1) & (a[base + 3 * j] == key4)
+        state = torch.where(hit, meta & _NEXT_MASK, state)
+        pid = a[base + 3 * j + 2]
+        match = torch.where(hit & (pid != 0), pid, match)
+        found = found | hit
+    for off, nrows, d, chain in tabs.rows[1:]:
+        if not bool((state != 0).any()):
+            break
+        w4 = word(d)
+        best_k = torch.zeros_like(p)
+        best_pid = torch.zeros_like(p)
+        nxt = torch.zeros_like(p)
+        cur = state
+        for _ in range(chain + 1):
+            live = (cur != 0) & (cur < nrows)
+            row = off + torch.where(live, cur, 0) * 3 * W_ENTRIES
+            cont = torch.zeros_like(p)
+            for j in range(W_ENTRIES):
+                key, meta, pid = (a[row + 3 * j + i] for i in range(3))
+                klen, nx = meta >> 28, meta & _NEXT_MASK
+                cont = torch.where(live & (klen == 0) & (nx != 0), nx, cont)
+                shift = 8 * (4 - torch.clamp(klen, 1, 4))
+                hit = (live & (klen >= 1) & (klen <= 4) & (maxd >= d + klen)
+                       & ((w4 >> shift) == key))
+                upd = hit & (pid != 0) & (klen >= best_k)
+                best_k = torch.where(upd, klen, best_k)
+                best_pid = torch.where(upd, pid, best_pid)
+                nxt = torch.where(hit & (klen == 4) & (nx != 0), nx, nxt)
+            cur = cont
+        match = torch.where(best_pid != 0, best_pid, match)
+        state = nxt
+    deep = match != 0
+    out[p[deep]] = match[deep].to(torch.int32)
+    return None

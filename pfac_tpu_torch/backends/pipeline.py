@@ -1,34 +1,60 @@
-"""The walk-table tier end to end: sieve, compaction, survivor walk.
+"""The device pipeline end to end: sieve, deep tier, result in place.
 
-Counterpart of ``pfac_tpu.backends.pallas_sieve.build_pipeline`` for the
-walk-table tier with the dense-block escape off (the reference's
-``DENSE_ESCAPE_DIV = 0``, exact either way). K1 writes the exact depth-1..3
-result of every position and the survivor flags; compaction lists the
-survivors in ascending order; K2 walks all of them in one launch and writes
-the deeper matches into K1's result in place.
+Counterpart of ``pfac_tpu.backends.pallas_sieve.build_pipeline``. K1 writes
+the exact depth-1..3 result of every position, the survivor flags and the
+survivors of every block. The deep tier then writes matches of >= 4 bytes
+into K1's result in place:
+
+* walk-table tier: the dense-block escape (K3, ``block_walk.py``) walks
+  every position of each block where at least a quarter of the positions
+  survive, and clears those blocks' flags; compaction lists the remaining
+  survivors in ascending order and K2 (``walk.py``) walks all of them in
+  one launch;
+* CSR tier (rulesets the walk tables cannot hold): compaction, then the CSR
+  walk (``csr_walk.py``) over every survivor in one launch.
+
+The reference gates its escape on ``max_len + 4 <= HALO_ROWS * LANES``: its
+K3 stages a block and a fixed lookahead in VMEM. K3 here reads bytes
+straight from the corpus, bounded by n, so the escape is armed whenever the
+walk tables exist, whatever the pattern length.
 
 The reference's round machinery (light/heavy rounds, ``HEAVY_CAP``,
-``R_BUF_ROUNDS``, ``PER_IDX_*``, the deferred scatter buffer) exists for
-XLA's static shapes and is not ported: one launch takes any survivor count,
-and the walker tier has no overflow to report.
+``R_BUF_ROUNDS``, ``PER_IDX_ROUNDS``, the deferred scatter buffer) and the
+CSR walker's capacity-staged pruning exist for XLA's static shapes and are
+not ported: one launch takes any survivor count and walks every survivor to
+full depth, so neither tier has a stage capacity or an overflow to report.
 """
 from __future__ import annotations
 
 import torch
 
+from . import block_walk as block_walk_mod
+from . import csr_walk as csr_walk_mod
 from . import sieve as sieve_mod
 from . import walk as walk_mod
 from .probe import Packed
 
 
 def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
-        walk_tabs: Packed | None, *, plain: bool = False) -> torch.Tensor:
+        walk_tabs: Packed | None = None, csr_tabs: Packed | None = None, *,
+        block: int = sieve_mod.BLOCK, escape: bool = True,
+        plain: bool = False) -> torch.Tensor:
     """uint8 data (>= n bytes) -> int32[npad] longest-match IDs (0 at and
-    past n). `plain=True` runs the plain torch versions on the data's
-    device instead of the kernels (the reference the card run checks)."""
+    past n). The walk tables take precedence over the CSR tables; with
+    neither, the sieve's result is complete. `block` is the escape's block
+    of positions; `escape=False` disarms it (every survivor goes to K2).
+    `plain=True` runs the plain torch versions on the data's device instead
+    of the kernels (the reference the card run checks)."""
     sieve = sieve_mod.sieve_plain if plain else sieve_mod.sieve
-    match, flags = sieve(data, n, npad, sieve_tabs)
+    match, flags, counts = sieve(data, n, npad, sieve_tabs, block)
     if walk_tabs is not None:
+        if escape:
+            bw = (block_walk_mod.block_walk_plain if plain
+                  else block_walk_mod.block_walk)
+            bw(data, n, counts, match, flags, walk_tabs)
         walk = walk_mod.walk_plain if plain else walk_mod.walk
         walk(data, n, sieve_mod.compact(flags), match, walk_tabs)
+    elif csr_tabs is not None:
+        csr = csr_walk_mod.csr_walk_plain if plain else csr_walk_mod.csr_walk
+        csr(data, n, sieve_mod.compact(flags), match, csr_tabs)
     return match

@@ -1,11 +1,11 @@
 """Backend selection: counterpart of ``pfac_tpu.backends.pallas.try_build``.
 
-The port has one device tier so far, the walk-table tier (sieve kernel K1 +
-survivor walk K2). Where the reference would take a tier the port does not
-have yet (the CSR walker for big or wide rulesets, or the XLA lockstep
-walker for oversized sieve tables and HBM placement), it raises
-``PfacError(INVALID_PARAMETER)`` naming the missing tier (here or in
-``SieveMatcher``); it never silently picks another engine.
+The port's device engine is ``SieveMatcher``: the sieve kernel K1, then the
+walk-table tier (K3 + K2) or, for big or wide rulesets, the CSR tier. Where
+the reference would take the XLA lockstep walker (oversized sieve tables,
+HBM placement), which the port does not have yet, it raises
+``PfacError(INVALID_PARAMETER)`` naming it (here or in ``SieveMatcher``); it
+never silently picks another engine.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Device matcher of the walk-table tier.
+"""Device matcher: the walk-table tier and the CSR tier.
 
 Counterpart of ``pfac_tpu.backends.pallas_sieve.SieveMatcher``, with the
 same methods and output contract: ``match_device`` returns int32 padded to
@@ -15,6 +15,7 @@ from pfac_tpu.backends.golden import _as_u8, reduce_result
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
 from . import pipeline
+from .csr_tables import build_csr_tables
 from .sieve_tables import _VMEM_TABLE_BUDGET, LANES, SieveTables
 from .walk_tables import build_walk_tables_gated
 
@@ -29,12 +30,14 @@ def npad_for(n: int, tile_rows: int = TILE_ROWS) -> int:
 
 
 class SieveMatcher:
-    """Sieve kernel + survivor walk on one torch device.
+    """Sieve kernel + deep tier on one torch device.
 
-    Raises PfacError where the reference would take a tier the port does
-    not have yet: the XLA lockstep walker for sieve tables past the
-    reference's 8 MB budget, or the CSR walker for rulesets whose walk
-    tables cannot be built or exceed theirs."""
+    The deep tier is the walk-table tier (dense-block escape K3, survivor
+    walk K2) when the walk tables can be built within their 6 MB budget,
+    else the CSR tier (CSR walk) for rulesets with patterns of >= 4 bytes.
+    Raises PfacError where the reference would take the XLA lockstep
+    walker, which the port does not have yet: sieve tables past the
+    reference's 8 MB budget."""
 
     def __init__(self, automaton: Automaton, *, device, tile_rows=TILE_ROWS):
         self.automaton = automaton
@@ -50,14 +53,14 @@ class SieveMatcher:
                 "XLA lockstep walker, which is not ported yet",
             )
         self.walk_tables = build_walk_tables_gated(automaton, self.tables)
+        self.csr_tables = None
         if self.walk_tables is None and self.tables.alive is not None:
-            raise PfacError(
-                PfacStatus.INVALID_PARAMETER,
-                "ruleset needs the CSR walk tier, which is not ported yet",
-            )
+            self.csr_tables = build_csr_tables(automaton)
         self._sieve = self.tables.to_device(self.device)
         self._walk = (None if self.walk_tables is None
                       else self.walk_tables.to_device(self.device))
+        self._csr = (None if self.csr_tables is None
+                     else self.csr_tables.to_device(self.device))
 
     def _run(self, data: torch.Tensor, n: int) -> torch.Tensor:
         if n > _POS_LIMIT:
@@ -66,7 +69,8 @@ class SieveMatcher:
                 "input exceeds the int32 position range; feed < 2 GiB chunks",
             )
         return pipeline.run(data, n, npad_for(n, self.tile_rows),
-                            self._sieve, self._walk)
+                            self._sieve, self._walk, self._csr,
+                            block=self.tile_rows * LANES)
 
     def match_device(self, data_u8: torch.Tensor) -> torch.Tensor:
         """uint8[N] on this device -> int32[npad_for(N)] (tail zeroed)."""
@@ -77,7 +81,7 @@ class SieveMatcher:
         return self._run(data_u8, int(data_u8.shape[0]))
 
     def flush_checks(self) -> None:
-        """Nothing is deferred on this tier: the walk has no overflow."""
+        """Nothing is deferred: neither deep tier has a stage capacity."""
 
     def match(self, data) -> np.ndarray:
         arr = _as_u8(data)

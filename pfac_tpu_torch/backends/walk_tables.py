@@ -136,7 +136,7 @@ def build_walk_tables(automaton: Automaton) -> WalkTables | None:
 def build_walk_tables_gated(automaton: Automaton,
                             tables: SieveTables) -> WalkTables | None:
     """Walk tables when the ruleset supports them and they fit the
-    reference's budget; None sends the ruleset to the (unported) CSR tier."""
+    reference's budget; None sends the ruleset to the CSR tier."""
     if tables.alive is None:
         return None                     # no pattern >= 4 bytes: no walk
     wt = build_walk_tables(automaton)

@@ -6,9 +6,10 @@ CPU golden platform, chunking past ``_CHUNK_LIMIT`` and ``stream()`` are
 host code shared with the reference), plus an explicit torch ``device``.
 Only engine selection differs:
 
-* ``Platform.DEVICE`` with ``Backend.AUTO``/``PALLAS``: the walk-table tier
-  (``backends.select.try_build``) on ``device``; ``device="cuda"`` runs the
-  CUDA kernels, ``device="cpu"`` their plain torch versions;
+* ``Platform.DEVICE`` with ``Backend.AUTO``/``PALLAS``: the sieve engine
+  (``backends.select.try_build``; walk-table or CSR tier) on ``device``;
+  ``device="cuda"`` runs the CUDA kernels, ``device="cpu"`` their plain
+  torch versions;
 * ``Platform.CPU`` and ``Backend.GOLDEN``: the serial numpy golden model;
 * ``Backend.XLA`` and ``Platform.CPU_PARALLEL`` raise ``PfacError`` until the
   lockstep walker is ported.

@@ -11,7 +11,8 @@ import torch
 
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import golden
-from pfac_tpu_torch.backends import pipeline, sieve, walk
+from pfac_tpu_torch.backends import (block_walk, csr_walk, pipeline, sieve,
+                                     sieve_matcher, walk)
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 
 pytestmark = pytest.mark.cuda
@@ -49,9 +50,9 @@ def test_kernels_match_plain(dev, n):
     host = _corpus(rng, pats, max(n, 200))[:n]
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    mk, fk = sieve.sieve(data, n, npad, eng._sieve)
-    mp, fp = sieve.sieve_plain(data, n, npad, eng._sieve)
-    assert torch.equal(mk, mp) and torch.equal(fk, fp)
+    mk, fk, ck = sieve.sieve(data, n, npad, eng._sieve)
+    mp, fp, cp = sieve.sieve_plain(data, n, npad, eng._sieve)
+    assert torch.equal(mk, mp) and torch.equal(fk, fp) and torch.equal(ck, cp)
     pos = sieve.compact(fk)
     out_k, out_p = mk.clone(), mk.clone()
     walk.walk(data, n, pos, out_k, eng._walk)
@@ -77,9 +78,10 @@ def test_launch_counters(dev):
     pats, rng = _ruleset(7)
     m = pt.Matcher(pats, device=dev)
     data = torch.from_numpy(_corpus(rng, pats, 1 << 20)).to(dev)
-    sieve.LAUNCHES = walk.LAUNCHES = 0
+    sieve.LAUNCHES = walk.LAUNCHES = block_walk.LAUNCHES = 0
     m.match_device(data)
     assert sieve.LAUNCHES == 1 and walk.LAUNCHES == 1
+    assert block_walk.LAUNCHES == 1      # armed: one launch, no dense block
 
 
 def test_unaligned_view(dev):
@@ -91,3 +93,85 @@ def test_unaligned_view(dev):
     got = m.match_device(data).cpu().numpy()[:10000]
     assert got.tolist() == golden.match_edges_batch(m.automaton,
                                                     host[1:]).tolist()
+
+
+def _dense_corpus(n: int) -> np.ndarray:
+    """Blocks of 'a' runs (dense for b"aaaa") between random blocks; n may
+    end mid-block."""
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, size=n, dtype=np.uint8)
+    for b0 in range(0, n, 3 * 65536):
+        data[b0:b0 + 65536] = ord("a")
+    data[n // 2:n // 2 + 100] = np.frombuffer(b"aaaab" * 20, np.uint8)
+    return data
+
+
+@pytest.mark.parametrize("n", [65536, 200_000, 3 * 65536 + 777])
+def test_block_walk_matches_plain(dev, n):
+    pats = [b"aaaa", b"aaaab", b"a" * 40, b"ab", b"a", b"aaab" * 5]
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    host = _dense_corpus(n)
+    data = torch.from_numpy(host).to(dev)
+    npad = npad_for(n)
+    match, flags, counts = sieve.sieve(data, n, npad, eng._sieve)
+    assert block_walk.escaped_blocks(counts, npad) >= 1
+    mk, fk = match.clone(), flags.clone()
+    block_walk.block_walk(data, n, counts, mk, fk, eng._walk)
+    block_walk.block_walk_plain(data, n, counts, match, flags, eng._walk)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, match) and torch.equal(fk, flags)
+    res = m.match_device(data)
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
+                                         plain=True))
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
+                                         escape=False))
+    assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
+        m.automaton, host).tolist()
+
+
+def _csr_ruleset():
+    rng = np.random.default_rng(1)
+    return [bytes(rng.integers(0, 256, size=int(k), dtype=np.uint8))
+            for k in rng.integers(60, 120, size=3000)], rng
+
+
+@pytest.mark.parametrize("n", [5, 65536, 300_001])
+def test_csr_tier_on_card(dev, n):
+    # walk tables past their budget: the CSR tier, n ending mid-block
+    pats, rng = _csr_ruleset()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    assert eng.walk_tables is None and eng.csr_tables is not None
+    host = _corpus(rng, pats, max(n, 200))[:n]
+    data = torch.from_numpy(host).to(dev)
+    npad = npad_for(n)
+    match, flags, _ = sieve.sieve(data, n, npad, eng._sieve)
+    pos = sieve.compact(flags)
+    out_k, out_p = match.clone(), match.clone()
+    csr_walk.csr_walk(data, n, pos, out_k, eng._csr)
+    csr_walk.csr_walk_plain(data, n, pos, out_p, eng._csr)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p)
+    sieve.LAUNCHES = csr_walk.LAUNCHES = block_walk.LAUNCHES = 0
+    res = m.match_device(data)
+    assert sieve.LAUNCHES == 1 and block_walk.LAUNCHES == 0
+    assert csr_walk.LAUNCHES == (1 if pos.numel() else 0)
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, None,
+                                         eng._csr, plain=True))
+    assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
+        m.automaton, host).tolist()
+
+
+def test_forced_csr_tier_on_card(dev, monkeypatch):
+    # a Snort-like ruleset through the CSR tier: its deep matches equal the
+    # walk-table tier's
+    pats, rng = _ruleset(11)
+    host = _corpus(rng, pats, 1 << 20)
+    data = torch.from_numpy(host).to(dev)
+    walk_res = pt.Matcher(pats, device=dev).match_device(data)
+    monkeypatch.setattr(sieve_matcher, "build_walk_tables_gated",
+                        lambda *a: None)
+    m = pt.Matcher(pats, device=dev)
+    assert m._engine().csr_tables is not None
+    assert torch.equal(m.match_device(data), walk_res)

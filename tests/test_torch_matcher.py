@@ -8,14 +8,14 @@ import torch
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import golden
 from pfac_tpu.backends.pallas_sieve import SieveMatcher as RefSieveMatcher
-from pfac_tpu_torch.backends import sieve
+from pfac_tpu_torch.backends import block_walk, sieve
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 
 README = [b"AB", b"ABG", b"BEDE", b"ED"]
 
 
-def _check(pats, data: bytes, reference: bool = True):
-    m = pt.Matcher(pats, device="cpu")
+def _check(pats, data: bytes, reference: bool = True, **kw):
+    m = pt.Matcher(pats, device="cpu", **kw)
     got = m.match(data)
     want = golden.match_dense(m.automaton, data)
     assert got.dtype == np.int32 and got.tolist() == want.tolist()
@@ -67,16 +67,21 @@ def test_lengths_at_grid_multiples(n):
 
 
 def test_dense_block_survivors():
-    # more than a quarter of a block survives: the case the reference
-    # routes through its dense-block escape; the port walks every survivor
+    # more than a quarter of a block survives: the port, like the
+    # reference, walks the whole block through the dense-block escape
     rng = np.random.default_rng(5)
     pats = [b"aaaa", b"aaaab", b"aaaaaaab", b"aaba", b"ab", b"a"]
     data = bytes(rng.choice(np.frombuffer(b"aaaaaaaaab", np.uint8), 4000))
-    m, _ = _check(pats, data)
+    m, _ = _check(pats, data, tile=8192)   # the reference's 64-row tile
+    eng = m._engine()
+    n, npad = len(data), npad_for(len(data), eng.tile_rows)
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-    _, flags = sieve.sieve(t, len(data), npad_for(len(data)),
-                           m._engine()._sieve)
-    assert int(flags.sum()) > 8192 // 4    # of the reference's 64-row tile
+    match, flags, counts = sieve.sieve(t, n, npad, eng._sieve, 8192)
+    assert int(counts[0]) > 8192 // 4
+    assert block_walk.escaped_blocks(counts, npad) == 1
+    block_walk.block_walk(t, n, counts, match, flags, eng._walk)
+    assert not flags.any()                 # compaction sees no survivor
+    assert match[:n].tolist() == m.match(data).tolist()
 
 
 def test_random_rulesets_vs_golden():
@@ -115,14 +120,26 @@ def test_platform_cpu_and_golden_backend():
         assert m.match(data).tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
 
 
-def test_unported_tiers_raise():
+def test_wide_ruleset_takes_the_csr_tier():
     # walk tables past their budget (> 6 MB in the reference layout): the
-    # reference would take the CSR tier, which the port does not have
+    # CSR tier serves the ruleset, as in the reference
     rng = np.random.default_rng(1)
     pats = [bytes(rng.integers(0, 256, size=80, dtype=np.uint8))
             for _ in range(3000)]
-    with pytest.raises(pt.PfacError, match="CSR"):
-        pt.Matcher(pats, device="cpu").match(b"abcd")
+    m = pt.Matcher(pats, device="cpu")
+    eng = m._engine()
+    assert eng.walk_tables is None and eng.csr_tables is not None
+    data = bytearray(rng.integers(0, 256, size=20000, dtype=np.uint8).tobytes())
+    for off in range(0, 19900, 997):
+        data[off:off + 80] = pats[int(rng.integers(0, len(pats)))]
+    data += pats[8] + pats[7][:79]         # one whole, one cut by the end
+    got = m.match(bytes(data))
+    want = golden.match_edges_batch(m.automaton, bytes(data))
+    assert got.tolist() == want.tolist() and (got > 0).sum() >= 20
+
+
+def test_unported_tiers_raise():
+    # the XLA lockstep walker is not ported: each tier that needs it raises
     for kw in ({"backend": "xla"}, {"platform": "cpu_parallel"},
                {"placement": "hbm"}):
         with pytest.raises(pt.PfacError, match="not ported"):

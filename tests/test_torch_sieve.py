@@ -6,7 +6,8 @@ interpret=True)`` with 64-row tiles; its survivor bitmap is decoded as
 position ``g*1024 + s*128 + j`` for bit s of lane j in bitmap row g
 (pallas_sieve._compact). The port's match tile must equal the kernel's on
 [0, n) (zeros past n) and its survivor positions must equal the decoded
-bitmap's.
+bitmap's, and its per-block survivor counts the bitmap's counts over the
+same blocks.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -48,11 +49,14 @@ def _compare(pats, data: bytes):
     tabs = SieveTables.build(a).to_device("cpu")
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
     pnpad = npad_for(n)
-    match, flags = sieve.sieve(t, n, pnpad, tabs)
+    match, flags, counts = sieve.sieve(t, n, pnpad, tabs)
     got = match.numpy()
     assert np.array_equal(got[:n], want)
     assert not got[n:].any()
     assert np.array_equal(sieve.compact(flags).numpy(), want_pos)
+    # survivors per 64K block: the bitmap's positions counted by block
+    assert np.array_equal(counts.numpy(), np.bincount(
+        want_pos // sieve.BLOCK, minlength=pnpad // sieve.BLOCK))
     return want_pos
 
 

@@ -11,6 +11,7 @@ import pytest
 
 import pfac_tpu.backends.pallas_sieve as S
 from pfac_tpu.backends import pallas_walk as W
+from pfac_tpu_torch.backends import block_walk, sieve
 from pfac_tpu_torch.backends.convert import from_jax_tables
 from pfac_tpu_torch.backends.sieve_tables import SieveTables
 from pfac_tpu_torch.backends.walk_tables import build_walk_tables
@@ -64,13 +65,15 @@ def _assert_same_tables(pats):
 
 
 def test_reference_defaults_match_the_port():
-    # the port leaves behind the reference's switched-off arms and the
-    # dense-block escape: pin the reference defaults it relies on
+    # the port leaves behind the reference's switched-off arms and mirrors
+    # its escape threshold and bucket: pin the reference defaults it relies on
     assert S.ALIVE_BUCKET2_MAX == 0
     assert S._RESID8_THRESHOLD >= 1 << 30
     assert S._ALIVE_CHD_MAX >= 1 << 30
     assert S._M1_CHAIN_MAX == 2
     assert S._WALK_VMEM_BUDGET == 6 << 20
+    assert S.DENSE_ESCAPE_DIV == block_walk.DENSE_ESCAPE_DIV == 4
+    assert S.TILE_ROWS == 512 and S.TILE_ROWS * S.LANES == sieve.BLOCK
 
 
 @pytest.mark.parametrize("case", [
