@@ -34,17 +34,24 @@ Phases, each on lines of its own:
 7. every kernel launched by the main path;
 8. CUDA-event times (median after warm-up) of each kernel and its plain
    version, of match_device end to end on every corpus, of the all-match
-   corpus with the escape disarmed, and torch.profiler breakdowns.
+   corpus with the escape disarmed, and torch.profiler breakdowns;
+9. the table-probe micro-benchmarks (``pfac_tpu_torch.experiments``, the
+   counterparts of the reference's E1-E6) at full size, and G1/G3 over the
+   four arenas built above, launch counts reset just before them: every
+   case bit-equal to its plain version and to the reference case's numpy
+   expectation, every placement that must refuse its table refused, each
+   of the four kernels G1-G4 launched; then a ``time`` line per case and
+   K1's table-load rate beside G1's over the same arena.
 
-Then one JSON line of per-kernel results, and last
+Then one JSON line of per-kernel results (K1-K4, G1-G4), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
 Integer IDs are compared exactly (tolerance 0).
 """
 from __future__ import annotations
 
+import itertools
 import json
-import subprocess
 import sys
 import time
 
@@ -58,14 +65,6 @@ MIXED = 16 * MB
 SLICE = 16 * MB
 BIG_SLICE = 4 * MB         # golden slice of the big-ruleset corpus
 GOLDEN_SECONDS = 20.0      # per corpus: widen the golden check while time allows
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def planted_text(rng, pats, n: int, share: float) -> np.ndarray:
@@ -101,23 +100,6 @@ def mixed_density(rng, pats, n: int, block: int) -> np.ndarray:
         p = pats[int(rng.integers(0, len(pats)))]
         d[i:i + len(p)] = np.frombuffer(p, np.uint8)
     return d
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def breakdown(name: str, fn, reps: int = 5) -> None:
@@ -194,10 +176,16 @@ def main() -> int:
     from pfac_tpu_torch.backends.csr_tables import build_csr_tables
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
     from pfac_tpu_torch.backends.sieve_tables import SieveTables
+    from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
+                                            dyngather_micro, gather_micro,
+                                            gathers, harness,
+                                            lanegather2_micro,
+                                            lanegather_micro)
+    cuda_ms = gathers.cuda_ms
 
     # 1. the card
     dev = torch.device("cuda:0")
-    name_limit = card()
+    name_limit = harness.card()
     kind = torch.cuda.get_device_name(0)
     print(name_limit)                  # as nvidia-smi prints it
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -435,6 +423,68 @@ def main() -> int:
                       ("big_ruleset", mb, big_d), ("all_match", m1, a_d)):
         breakdown(nm, lambda: mt.match_device(d))
 
+    # 9. the gather micro-benchmarks E1-E6 at full size and the sweep over
+    # the four arenas, launch counts reset just before them
+    t9 = time.perf_counter()
+    micro = itertools.chain(
+        lanegather_micro.cases(dev), gather_micro.cases(dev),
+        dyngather_micro.cases(dev), align_micro.cases(dev),
+        axis0_gather_probe.cases(dev), lanegather2_micro.cases(dev),
+        gather_micro.arena_cases(gather_micro.arenas_of(eng, engb)))
+    torch.cuda.synchronize()
+    for k in gathers.LAUNCHES:
+        gathers.LAUNCHES[k] = 0
+    checked, g_err = [], dict.fromkeys(gathers.LAUNCHES, 0)
+    for item in micro:
+        if isinstance(item, harness.Refusal):
+            print(harness.refuse(item))
+            continue
+        g_err[item.kernel] = max(g_err[item.kernel], harness.check(item))
+        item.expect = None
+        checked.append(item)
+    torch.cuda.synchronize()
+    g_launches = dict(gathers.LAUNCHES)
+    print(f"micro-benchmark launches: {json.dumps(g_launches)}; "
+          f"{len(checked)} cases bit-equal to their plain versions and to "
+          f"the reference cases' numpy expectations")
+    assert all(v > 0 for v in g_launches.values()), g_launches
+    timed = [harness.measure(c, name_limit) for c in checked]
+
+    def pick(kernel: str, *keys: str) -> dict:
+        return next(t for t in timed if t["kernel"] == kernel
+                    and all(k in t["name"] for k in keys))
+
+    # K1's table-load rate, timed as the cases are (batches of calls)
+    for nm, d, tabs, arena in (("Snort", rand_d, eng._sieve, "snort_sieve"),
+                               ("100K", big_d, engb._sieve, "100k_sieve")):
+        ms = cuda_ms(lambda: sieve.sieve(d, CORPUS, npad, tabs),
+                     batch=harness.BATCH)
+        loads = gather_micro.k1_loads(tabs.rows)
+        g1 = pick("word_gather_kernel", arena, "G1 ldg")
+        g3 = pick("chain_gather_kernel", arena, "ldg")
+        print(f"K1 {nm}: {loads} table loads per position x {CORPUS} "
+              f"positions in {ms:.4f} ms = {loads * CORPUS / ms / 1e6:.2f} G "
+              f"loads/s; over the same arena G1 ldg "
+              f"{g1['lookups'] / g1['ms'] / 1e6:.2f}, G3 chain 4 ldg "
+              f"{g3['lookups'] / g3['ms'] / 1e6:.2f} G lookups/s  "
+              f"[{name_limit}]")
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    rep = {"word_gather_kernel": pick("word_gather_kernel", "snort_sieve",
+                                      "G1 ldg"),
+           "tile_gather_kernel": pick("tile_gather_kernel", "E1 A"),
+           "chain_gather_kernel": pick("chain_gather_kernel", "E3 rows=4096",
+                                       "chain=4 smem"),
+           "align_kernel": pick("align_kernel", "E4")}
+    replaces = {
+        "word_gather_kernel": "experiments/lanegather_micro.py:46 (cases C "
+                              ":98, D :130); experiments/gather_micro.py:39, "
+                              ":62, :103; experiments/lanegather2_micro.py:101",
+        "tile_gather_kernel": "experiments/lanegather_micro.py:46 (case A "
+                              ":63); experiments/lanegather2_micro.py:49; "
+                              "experiments/axis0_gather_probe.py:35",
+        "chain_gather_kernel": "experiments/dyngather_micro.py:40",
+        "align_kernel": "experiments/align_micro.py:63"}
+
     print(json.dumps({"kernels": [
         {"name": "sieve_kernel", "route": "cuda",
          "source": "pfac_tpu_torch/csrc/sieve.cu",
@@ -456,7 +506,12 @@ def main() -> int:
          "replaces": "pfac_tpu/backends/pallas_walk.py:664",
          "launches": launches["csr_walk_kernel"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain},
-    ]}))
+    ] + [
+        {"name": k, "route": "cuda",
+         "source": "pfac_tpu_torch/csrc/gather_micro.cu",
+         "replaces": replaces[k], "launches": g_launches[k],
+         "max_abs_err": g_err[k], "ms": rep[k]["ms"],
+         "plain_ms": rep[k]["plain_ms"]} for k in gathers.LAUNCHES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

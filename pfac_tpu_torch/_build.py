@@ -44,6 +44,14 @@ _SIGNATURES = {
                         _P, _P, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    # device, table, words, idx, n, placement, out, stream
+    "pfac_word_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _P, _P],
+    # device, tile, rows, cols, idx, m, k, axis, out, stream
+    "pfac_tile_gather": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # device, table, words, idx, n, chain, placement, hashed, out, stream
+    "pfac_chain_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # device, pos, raw, groups, w_out, w_raw, out, stream
+    "pfac_align": [ctypes.c_int, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,0 +1,359 @@
+// Table-probe micro-benchmark kernels G1-G4: the Hopper counterparts of the
+// TPU gather micro-benchmarks E1-E6 (experiments/lanegather_micro.py,
+// gather_micro.py, dyngather_micro.py, align_micro.py, axis0_gather_probe.py,
+// lanegather2_micro.py). On the TPU each of those tried a layout that makes
+// a dynamic gather lowerable and fast: lane gathers within one vreg, vreg
+// scans, lane- or sublane-replicated planes, a 32-way row select. On this
+// card every one of them is the same indexed load, so four kernels serve all
+// nine sites, and what they measure is where the table lives:
+//
+//   G1 word_gather_kernel   out[i] = T[idx[i]]                 (E1-C/D, E2, E6)
+//   G2 tile_gather_kernel   take_along_axis on an int32 tile   (E1-A, E5, E6)
+//   G3 chain_gather_kernel  v = T[v], `chain` dependent loads  (E3)
+//   G4 align_kernel         the walker's window align           (E4)
+//
+// Placement (G1, G3): kSmem stages the whole table in dynamic shared memory
+// in every CTA (at most 232,448 B = 58,112 words, the opt-in limit of a
+// block; a larger table is refused, never demoted); kLdg reads it through
+// L1 (__ldg); kCg through L2 only (__ldcg). The launch is one wave of
+// persistent CTAs (occupancy x SMs), so a CTA stages its table once and then
+// strides over the indices.
+//
+// Bound: 16M lookups stream 64 MB of indices in and 64 MB of results out,
+// ~0.04 ms at 3.35 TB/s; past that, the table's placement. Each thread keeps
+// kIlp independent lookups in flight (a chain step waits for the previous
+// one: the walks' pattern). Indices and results are streamed with __ldcs /
+// __stcs (evict first), so they do not push the table out of L1 and L2.
+//
+// Indices must lie in [0, words) (the caller's contract, as for the walks'
+// positions): no kernel checks them.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kIlp = 4;                  // independent lookups per thread
+constexpr int kStrip = 32;               // G2: output columns per CTA
+constexpr int kStripRows = kThreads / kStrip;
+constexpr int32_t kSmemWords = 232448 / 4;
+constexpr int kAlignSpan = 32;           // G4: window offsets 0..31
+constexpr uint32_t kChainMul = 0x9E3779B1u;
+
+enum Placement { kSmem = 0, kLdg = 1, kCg = 2 };
+
+template <int P>
+__device__ __forceinline__ int32_t fetch(const int32_t* __restrict__ table,
+                                         const int32_t* s, uint32_t i) {
+  if constexpr (P == kSmem) return s[i];
+  else if constexpr (P == kLdg) return __ldg(table + i);
+  else return __ldcg(table + i);
+}
+
+// Words [0, n) of g into s, by all `nthreads` threads of the CTA.
+__device__ __forceinline__ void stage(int32_t* s, const int32_t* __restrict__ g,
+                                      int32_t n, int tid, int nthreads) {
+  for (int32_t k = tid; k < n; k += nthreads) s[k] = __ldg(g + k);
+  __syncthreads();
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+word_gather_kernel(const int32_t* __restrict__ table, int32_t words,
+                   const int32_t* __restrict__ idx, int32_t n,
+                   int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  if constexpr (P == kSmem) stage(smem, table, words, threadIdx.x, kThreads);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kIlp;
+  for (int64_t e0 = static_cast<int64_t>(blockIdx.x) * kThreads * kIlp +
+                    threadIdx.x;
+       e0 < n; e0 += stride) {
+    uint32_t v[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int64_t e = e0 + k * kThreads;
+      v[k] = e < n ? static_cast<uint32_t>(__ldcs(idx + e)) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int64_t e = e0 + k * kThreads;
+      if (e < n) __stcs(out + e, fetch<P>(table, smem, v[k]));
+    }
+  }
+}
+
+// Hashed: the next index is a multiply-shift hash of the word and the index,
+// reduced to [0, words) (__umulhi), as a walk hashes its state into the
+// next probe slot; for tables whose words are not indices. Else v = T[v].
+template <int P, bool Hashed>
+__global__ void __launch_bounds__(kThreads)
+chain_gather_kernel(const int32_t* __restrict__ table, int32_t words,
+                    const int32_t* __restrict__ idx, int32_t n, int32_t chain,
+                    int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  if constexpr (P == kSmem) stage(smem, table, words, threadIdx.x, kThreads);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kIlp;
+  for (int64_t e0 = static_cast<int64_t>(blockIdx.x) * kThreads * kIlp +
+                    threadIdx.x;
+       e0 < n; e0 += stride) {
+    uint32_t v[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int64_t e = e0 + k * kThreads;
+      v[k] = e < n ? static_cast<uint32_t>(__ldcs(idx + e)) : 0u;
+    }
+    for (int32_t c = 0; c < chain; ++c) {
+#pragma unroll
+      for (int k = 0; k < kIlp; ++k) {
+        const uint32_t x = static_cast<uint32_t>(fetch<P>(table, smem, v[k]));
+        v[k] = Hashed ? __umulhi((x ^ v[k]) * kChainMul,
+                                 static_cast<uint32_t>(words))
+                      : x;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int64_t e = e0 + k * kThreads;
+      if (e < n) __stcs(out + e, static_cast<int32_t>(v[k]));
+    }
+  }
+}
+
+// Block (kStrip, kStripRows); blockIdx.y picks kStrip output columns.
+// Axis 1: out[i, j] = tile[i % rows, idx[i, j]], the whole tile staged.
+// Axis 0: out[i, j] = tile[idx[i, j], j] (k == cols), only the strip's
+// columns staged, as s[r * kStrip + c]: each lane reads its own bank.
+__global__ void __launch_bounds__(kThreads)
+tile_gather_kernel(const int32_t* __restrict__ tile, int32_t rows,
+                   int32_t cols, const int32_t* __restrict__ idx, int32_t m,
+                   int32_t k, int32_t axis, int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  const int tid = threadIdx.y * kStrip + threadIdx.x;
+  const int32_t j0 = static_cast<int32_t>(blockIdx.y) * kStrip;
+  if (axis == 0) {
+    for (int32_t q = tid; q < rows * kStrip; q += kThreads) {
+      const int32_t c = j0 + q % kStrip;
+      smem[q] = c < cols ? __ldg(tile + static_cast<int64_t>(q / kStrip) * cols + c)
+                         : 0;
+    }
+    __syncthreads();
+  } else {
+    stage(smem, tile, rows * cols, tid, kThreads);
+  }
+  const int32_t j = j0 + threadIdx.x;
+  if (j >= k) return;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kStripRows * kIlp;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * kStripRows * kIlp +
+                    threadIdx.y;
+       i0 < m; i0 += stride) {
+    int32_t v[kIlp];
+#pragma unroll
+    for (int r = 0; r < kIlp; ++r) {
+      const int64_t i = i0 + r * kStripRows;
+      v[r] = i < m ? __ldcs(idx + i * k + j) : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kIlp; ++r) {
+      const int64_t i = i0 + r * kStripRows;
+      if (i < m)
+        __stcs(out + i * k + j,
+               axis == 0 ? smem[v[r] * kStrip + threadIdx.x]
+                         : smem[static_cast<int32_t>(static_cast<uint32_t>(i) %
+                                                     static_cast<uint32_t>(rows)) *
+                                    cols + v[r]]);
+    }
+  }
+}
+
+// One thread per survivor s = (g, r, l) of the reference's (8, 128) groups:
+// out[((g*w_out + w)*8 + r)*128 + l] = raw[((g*w_raw + w + wv)*8 + r)*128 + l]
+// for w < w_out, wv = (pos[s] & 127) >> 2. A direct indexed load replaces
+// the TPU's 32-way row select; neighbouring lanes write neighbouring words.
+__global__ void __launch_bounds__(kThreads)
+align_kernel(const int32_t* __restrict__ pos, const int32_t* __restrict__ raw,
+             int32_t survivors, int32_t w_out, int32_t w_raw,
+             int32_t* __restrict__ out) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (s >= survivors) return;
+  const int64_t g = s >> 10;
+  const int64_t rl = s & 1023;
+  const int64_t wv = (__ldg(pos + s) & 127) >> 2;
+  const int32_t* src = raw + ((g * w_raw + wv) << 10) + rl;
+  int32_t* dst = out + ((g * w_out) << 10) + rl;
+#pragma unroll 4
+  for (int32_t w = 0; w < w_out; ++w)
+    __stcs(dst + (static_cast<int64_t>(w) << 10),
+           __ldg(src + (static_cast<int64_t>(w) << 10)));
+}
+
+// One wave of CTAs of `kernel` with `smem` dynamic bytes, at most `want`.
+template <typename Kernel>
+cudaError_t wave(Kernel kernel, int device, size_t smem, int64_t want,
+                 unsigned* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  const int64_t full = static_cast<int64_t>(per_sm) * sms;
+  *grid = static_cast<unsigned>(want < 1 ? 1 : (want < full ? want : full));
+  return cudaSuccess;
+}
+
+int64_t lookup_ctas(int32_t n) {
+  return (static_cast<int64_t>(n) + kThreads * kIlp - 1) / (kThreads * kIlp);
+}
+
+template <int P>
+cudaError_t launch_word(int device, const int32_t* table, int32_t words,
+                        const int32_t* idx, int32_t n, int32_t* out,
+                        cudaStream_t stream) {
+  const size_t smem = P == kSmem ? sizeof(int32_t) * words : 0;
+  unsigned grid = 0;
+  cudaError_t err = wave(word_gather_kernel<P>, device, smem, lookup_ctas(n),
+                         &grid);
+  if (err != cudaSuccess) return err;
+  word_gather_kernel<P><<<grid, kThreads, smem, stream>>>(table, words, idx,
+                                                         n, out);
+  return cudaGetLastError();
+}
+
+template <int P, bool Hashed>
+cudaError_t launch_chain(int device, const int32_t* table, int32_t words,
+                         const int32_t* idx, int32_t n, int32_t chain,
+                         int32_t* out, cudaStream_t stream) {
+  const size_t smem = P == kSmem ? sizeof(int32_t) * words : 0;
+  unsigned grid = 0;
+  cudaError_t err = wave(chain_gather_kernel<P, Hashed>, device, smem,
+                         lookup_ctas(n), &grid);
+  if (err != cudaSuccess) return err;
+  chain_gather_kernel<P, Hashed><<<grid, kThreads, smem, stream>>>(
+      table, words, idx, n, chain, out);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t dispatch_chain(int device, const int32_t* table, int32_t words,
+                           const int32_t* idx, int32_t n, int32_t chain,
+                           int32_t hashed, int32_t* out, cudaStream_t stream) {
+  return hashed ? launch_chain<P, true>(device, table, words, idx, n, chain,
+                                        out, stream)
+                : launch_chain<P, false>(device, table, words, idx, n, chain,
+                                         out, stream);
+}
+
+}  // namespace
+
+// G1. table: int32[words]; idx, out: int32[n], each idx in [0, words);
+// placement 0 smem (words <= 58,112), 1 ldg, 2 cg, else
+// cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
+extern "C" int pfac_word_gather(int device, const void* table, int32_t words,
+                                const void* idx, int32_t n, int32_t placement,
+                                void* out, void* stream) {
+  if (words <= 0 || n < 0 || placement < kSmem || placement > kCg ||
+      (placement == kSmem && words > kSmemWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0) return 0;
+  const auto* t = static_cast<const int32_t*>(table);
+  const auto* i = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (placement) {
+    case kSmem:
+      return static_cast<int>(launch_word<kSmem>(device, t, words, i, n, o, st));
+    case kLdg:
+      return static_cast<int>(launch_word<kLdg>(device, t, words, i, n, o, st));
+    default:
+      return static_cast<int>(launch_word<kCg>(device, t, words, i, n, o, st));
+  }
+}
+
+// G2. tile: int32[rows, cols]; idx, out: int32[m, k]. Axis 1: each idx in
+// [0, cols), rows * cols <= 58,112. Axis 0: k == cols, each idx in
+// [0, rows), rows * 32 <= 58,112. Else cudaErrorInvalidValue.
+extern "C" int pfac_tile_gather(int device, const void* tile, int32_t rows,
+                                int32_t cols, const void* idx, int32_t m,
+                                int32_t k, int32_t axis, void* out,
+                                void* stream) {
+  const int64_t words = axis == 0 ? static_cast<int64_t>(rows) * kStrip
+                                  : static_cast<int64_t>(rows) * cols;
+  if (rows <= 0 || cols <= 0 || m < 0 || k <= 0 || (axis != 0 && axis != 1) ||
+      (axis == 0 && k != cols) || words > kSmemWords)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m == 0) return 0;
+  const size_t smem = sizeof(int32_t) * words;
+  const unsigned strips = static_cast<unsigned>((k + kStrip - 1) / kStrip);
+  unsigned grid = 0;
+  const int64_t row_ctas =
+      (static_cast<int64_t>(m) + kStripRows * kIlp - 1) / (kStripRows * kIlp);
+  err = wave(tile_gather_kernel, device, smem, row_ctas * strips, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned gx = grid / strips > 0 ? grid / strips : 1;
+  tile_gather_kernel<<<dim3(gx, strips), dim3(kStrip, kStripRows), smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(tile), rows, cols,
+      static_cast<const int32_t*>(idx), m, k, axis,
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// G3. table: int32[words]; idx, out: int32[n], each idx in [0, words);
+// unless hashed, every table word too. placement 0 smem (words <= 58,112),
+// 1 ldg, 2 cg; chain >= 1. Else cudaErrorInvalidValue.
+extern "C" int pfac_chain_gather(int device, const void* table, int32_t words,
+                                 const void* idx, int32_t n, int32_t chain,
+                                 int32_t placement, int32_t hashed, void* out,
+                                 void* stream) {
+  if (words <= 0 || n < 0 || chain < 1 || placement < kSmem ||
+      placement > kCg || (placement == kSmem && words > kSmemWords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0) return 0;
+  const auto* t = static_cast<const int32_t*>(table);
+  const auto* i = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (placement) {
+    case kSmem:
+      return static_cast<int>(dispatch_chain<kSmem>(device, t, words, i, n, chain, hashed, o, st));
+    case kLdg:
+      return static_cast<int>(dispatch_chain<kLdg>(device, t, words, i, n, chain, hashed, o, st));
+    default:
+      return static_cast<int>(dispatch_chain<kCg>(device, t, words, i, n, chain, hashed, o, st));
+  }
+}
+
+// G4. pos: int32[groups * 1024]; raw: int32[groups * w_raw * 1024];
+// out: int32[groups * w_out * 1024]; w_out + 31 <= w_raw, else
+// cudaErrorInvalidValue.
+extern "C" int pfac_align(int device, const void* pos, const void* raw,
+                          int32_t groups, int32_t w_out, int32_t w_raw,
+                          void* out, void* stream) {
+  if (groups < 0 || w_out <= 0 || w_out + kAlignSpan - 1 > w_raw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t survivors = static_cast<int64_t>(groups) * 1024;
+  if (survivors == 0) return 0;
+  align_kernel<<<static_cast<unsigned>(survivors / kThreads), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(raw),
+      static_cast<int32_t>(survivors), w_out, w_raw,
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

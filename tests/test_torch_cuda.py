@@ -14,6 +14,10 @@ from pfac_tpu.backends import golden
 from pfac_tpu_torch.backends import (block_walk, csr_walk, pipeline, sieve,
                                      sieve_matcher, walk)
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
+from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
+                                        dyngather_micro, gather_micro,
+                                        gathers, harness, lanegather2_micro,
+                                        lanegather_micro)
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +179,103 @@ def test_forced_csr_tier_on_card(dev, monkeypatch):
     m = pt.Matcher(pats, device=dev)
     assert m._engine().csr_tables is not None
     assert torch.equal(m.match_device(data), walk_res)
+
+
+def _words(dev, w: int, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=w,
+                                          dtype=np.int64).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, w, size=n).astype(np.int32))
+    return table.to(dev), idx.to(dev)
+
+
+@pytest.mark.parametrize("placement", gathers.PLACEMENTS)
+@pytest.mark.parametrize("w,n", [(1, 1), (3200, 1000), (58112, 70001),
+                                 (4096, 1 << 22)])
+def test_word_gather_on_card(dev, placement, w, n):
+    table, idx = _words(dev, w, n, w + n)
+    gathers.LAUNCHES["word_gather_kernel"] = 0
+    got = gathers.word_gather(table, idx, placement)
+    assert gathers.LAUNCHES["word_gather_kernel"] == 1
+    assert torch.equal(got, gathers.word_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("placement", ["ldg", "cg"])
+@pytest.mark.parametrize("w", [66560, 147712, 10_000_000])
+def test_word_gather_large_tables_on_card(dev, placement, w):
+    table, idx = _words(dev, w, 300_001, w)
+    assert torch.equal(gathers.word_gather(table, idx, placement),
+                       gathers.word_gather_plain(table, idx))
+
+
+def test_smem_limit_on_card(dev):
+    table, idx = _words(dev, gathers.SMEM_WORDS, 5000, 1)
+    assert torch.equal(gathers.word_gather(table, idx, "smem"), table[idx.long()])
+    assert torch.equal(gathers.chain_gather(table, idx, 2, "smem", True),
+                       gathers.chain_gather_plain(table, idx, 2, True))
+    big, _ = _words(dev, gathers.SMEM_WORDS + 1, 1, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        gathers.word_gather(big, idx, "smem")
+    with pytest.raises(ValueError, match="shared memory"):
+        gathers.chain_gather(big, idx, 1, "smem")
+
+
+@pytest.mark.parametrize("placement", gathers.PLACEMENTS)
+@pytest.mark.parametrize("chain", [1, 4])
+@pytest.mark.parametrize("hashed", [False, True])
+@pytest.mark.parametrize("w", [264, 16384, 58112])
+def test_chain_gather_on_card(dev, placement, chain, hashed, w):
+    rng = np.random.default_rng(w + chain)
+    table = torch.from_numpy(rng.integers(0, w, size=w).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, w, size=100_003).astype(np.int32)
+                           ).to(dev)
+    got = gathers.chain_gather(table, idx, chain, placement, hashed)
+    assert torch.equal(got, gathers.chain_gather_plain(table, idx, chain,
+                                                       hashed))
+
+
+@pytest.mark.parametrize("rows,cols,m,k,axis", [
+    (8, 128, 8, 128, 1), (8, 128, 131072, 128, 1), (8, 100, 24, 37, 1),
+    (512, 128, 8, 128, 0), (512, 128, 512, 128, 0), (32, 128, 8, 128, 0),
+    (1816, 40, 3001, 40, 0)])
+def test_tile_gather_on_card(dev, rows, cols, m, k, axis):
+    rng = np.random.default_rng(rows + m)
+    tile = torch.from_numpy(rng.integers(0, 1 << 30, size=(rows, cols))
+                            .astype(np.int32)).to(dev)
+    hi = rows if axis == 0 else cols
+    idx = torch.from_numpy(rng.integers(0, hi, size=(m, k)).astype(np.int32)
+                           ).to(dev)
+    assert torch.equal(gathers.tile_gather(tile, idx, axis),
+                       gathers.tile_gather_plain(tile, idx, axis))
+
+
+@pytest.mark.parametrize("groups,w_out,w_raw", [(1, 26, 64), (64, 26, 64),
+                                                (3, 1, 32), (5, 33, 64)])
+def test_align_on_card(dev, groups, w_out, w_raw):
+    rng = np.random.default_rng(groups)
+    pos = torch.from_numpy(rng.integers(0, 1 << 26, size=(groups * 8, 128))
+                           .astype(np.int32)).to(dev)
+    raw = torch.from_numpy(rng.integers(0, 1 << 30,
+                                        size=(groups * w_raw * 8, 128))
+                           .astype(np.int32)).to(dev)
+    assert torch.equal(gathers.align(pos, raw, w_out),
+                       gathers.align_plain(pos, raw, w_out))
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: lanegather_micro.cases(d, n_idx=1 << 16),
+    lambda d: gather_micro.cases(d, big=1 << 16),
+    lambda d: dyngather_micro.cases(d, n_idx=1 << 16),
+    lambda d: align_micro.cases(d, survivors=4096),
+    axis0_gather_probe.cases,
+    lambda d: lanegather2_micro.cases(d, n_idx=1 << 16)],
+    ids=["E1", "E2", "E3", "E4", "E5", "E6"])
+def test_micro_benchmark_cases_on_card(dev, make):
+    for k in gathers.LAUNCHES:
+        gathers.LAUNCHES[k] = 0
+    for item in make(dev):
+        if isinstance(item, harness.Refusal):
+            harness.refuse(item)
+        else:
+            assert harness.check(item) == 0
+    assert sum(gathers.LAUNCHES.values()) > 0
