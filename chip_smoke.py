@@ -5,16 +5,16 @@
 Drives the port's main path, ``Matcher(device="cuda").match_device``, on
 both device tiers at full size:
 
-* walk-table tier (K1 sieve, K3 dense-block escape, K2 survivor walk):
-  2,000 Snort-like patterns (``bench.py``) over a 128 MB random corpus, a
-  128 MB DEFCON-like corpus (text with 1.5% planted pattern bytes) and a
-  16 MB mixed-density corpus (``tests/test_pallas_sieve.py``'s recipe at
-  full block size: one dense block in 16); the pattern ``aaaa`` over 100 MB
-  of ``a`` (every block dense) and 100 MB of ``b`` (no match), the
+* walk-table tier (K1 sieve with its tables in shared memory, K3 dense-block
+  escape, survivor compaction, K2 survivor walk): 2,000 Snort-like patterns
+  (``rulesets.snort_like_patterns``) over a 128 MB random corpus, a 128 MB
+  DEFCON-like corpus (text with 1.5% planted pattern bytes) and a 16 MB
+  mixed-density corpus (one dense block in 16); the pattern ``aaaa`` over
+  100 MB of ``a`` (every block dense) and 100 MB of ``b`` (no match), the
   reference's Benchmark I corpora;
-* CSR tier (K1, then the CSR walk): 100,000 ClamAV-scale signatures
-  (``tools_bench_matrix.py``'s recipe) over 128 MB of printable text with
-  0.2% planted signature bytes.
+* CSR tier (K1 with its residuals split across a 2-CTA cluster, compaction,
+  CSR walk): 100,000 ClamAV-scale signatures over 128 MB of printable text
+  with 0.2% planted signature bytes.
 
 Phases, each on lines of its own:
 
@@ -23,30 +23,43 @@ Phases, each on lines of its own:
 3. conformance example on the card (match and match_reduce);
 4. set-up of both rulesets and all corpora (seconds, table sizes);
 5. every kernel against its plain torch version on the card, bit-equal:
-   K1 on a 16 MB random slice, K2 on the DEFCON-like survivors, the CSR
-   walk on the big corpus's survivors, K3 on the all-match and mixed
-   corpora;
-6. the main path on every corpus, launch counts reset just before it:
-   each result equal in full to the port's plain pipeline on the card, and
-   to the numpy golden oracle (golden.match_edges_batch) on >= 16 MB of
-   each corpus (>= 4 MB of the big-ruleset corpus, where the oracle is
-   slow); the escape taken on the all-match and mixed corpora;
-7. every kernel launched by the main path;
-8. CUDA-event times (median after warm-up) of each kernel and its plain
-   version, of match_device end to end on every corpus, of the all-match
-   corpus with the escape disarmed, and torch.profiler breakdowns;
+   K1 in each of its three table placements (the Snort arena in shared
+   memory on a 16 MB random slice; the 100K arena across a cluster and
+   through L1/L2 on a 16 MB slice of its corpus), the compaction on the
+   DEFCON-like, big-ruleset and mixed corpora, K2 on the DEFCON-like
+   survivors, the CSR walk on the big corpus's survivors, K3 on the
+   all-match and mixed corpora;
+6. the main path on every corpus, launch counts reset just before it, under
+   torch.profiler: no ``aten::nonzero`` ran; K1 and both compaction kernels
+   launched on every corpus; each result equal in full to the port's plain
+   pipeline on the card, and to the port's numpy golden oracle
+   (golden.match_edges_batch) on >= 16 MB of each corpus (>= 4 MB of the
+   big-ruleset corpus, where the oracle is slow); the escape taken on the
+   all-match and mixed corpora;
+7. every kernel of the path launched;
+8. CUDA-event times (median after warm-up; a kernel over batches of 10
+   calls, match_device one call at a time) of each kernel, its plain
+   version, its library yardstick where one PyTorch call computes the same
+   function (``torch.nonzero`` over uint8 flags for the compaction), and
+   its bound; the compaction's two kernels by torch.profiler; the 100K
+   arena's two placements in turns; match_device end to end on every
+   corpus and the all-match corpus with the escape disarmed; torch.profiler
+   breakdowns; the card's clocks before and after;
 9. the table-probe micro-benchmarks (``pfac_tpu_torch.experiments``, the
    counterparts of the reference's E1-E6) at full size, and G1/G3 over the
    four arenas built above, launch counts reset just before them: every
    case bit-equal to its plain version and to the reference case's numpy
    expectation, every placement that must refuse its table refused, each
-   of the four kernels G1-G4 launched; then a ``time`` line per case and
-   K1's table-load rate beside G1's over the same arena.
+   of the four kernels G1-G4 launched; then a ``time`` line per case (with
+   ``torch.take`` / ``torch.gather`` beside G1 / G2).
 
-Then one JSON line of per-kernel results (K1-K4, G1-G4), and last
+Then one JSON line of per-kernel results (every kernel of the main path and
+G1-G4, each with its bound and library time), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
-Integer IDs are compared exactly (tolerance 0).
+Integer IDs and positions are compared exactly (tolerance 0). A bound is
+the bytes the function must move (each input read once, each output
+written once, as this run's data needs them) over the H100's 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -65,41 +78,37 @@ MIXED = 16 * MB
 SLICE = 16 * MB
 BIG_SLICE = 4 * MB         # golden slice of the big-ruleset corpus
 GOLDEN_SECONDS = 20.0      # per corpus: widen the golden check while time allows
+HBM = 3.35e12              # H100 SXM device memory, bytes/s (data sheet)
 
 
-def planted_text(rng, pats, n: int, share: float) -> np.ndarray:
-    """Printable text with `share` of its bytes planted pattern copies."""
-    buf = bytearray(rng.integers(32, 127, size=n, dtype=np.uint8).tobytes())
-    placed, budget = 0, int(n * share)
-    while placed < budget:
-        p = pats[int(rng.integers(0, len(pats)))]
-        off = int(rng.integers(0, n - len(p)))
-        buf[off:off + len(p)] = p
-        placed += len(p)
-    return np.frombuffer(buf, dtype=np.uint8)
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM * 1e3
 
 
-def clamav_like_patterns(rng, k: int = 100_000) -> list[bytes]:
-    """tools_bench_matrix.py's big ruleset: lengths gamma(3, 18) + 8 clipped
-    to 8-200, uniform random bytes, deduplicated."""
-    lens = np.clip(rng.gamma(3.0, 18.0, size=k) + 8, 8, 200).astype(int)
-    raw = rng.integers(0, 256, size=int(lens.sum()), dtype=np.uint8)
-    ends = np.cumsum(lens)
-    return list(dict.fromkeys(raw[e - ln:e].tobytes()
-                              for e, ln in zip(ends, lens)))
+def device_ms(fn, reps: int = 10) -> dict[str, float]:
+    """torch.profiler device time per call of each kernel fn launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
-def mixed_density(rng, pats, n: int, block: int) -> np.ndarray:
-    """tests/test_pallas_sieve.py's mixed-density recipe at full block size:
-    random bytes, every 16th block all 'z' (dense for b"zzzz"), a pattern
-    planted every 177 bytes."""
-    d = rng.integers(0, 256, size=n, dtype=np.uint8)
-    for b0 in range(block, n, 16 * block):
-        d[b0:b0 + block] = ord("z")
-    for i in range(0, n - 250, 177):
-        p = pats[int(rng.integers(0, len(pats)))]
-        d[i:i + len(p)] = np.frombuffer(p, np.uint8)
-    return d
+def kernel_ms(times: dict[str, float], kernel: str) -> float:
+    """The device time of the kernel named `kernel` in device_ms's dict."""
+    hits = [t for k, t in times.items() if f"{kernel}(" in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{kernel}: not one profiler row in {times}")
+    return hits[0]
 
 
 def breakdown(name: str, fn, reps: int = 5) -> None:
@@ -130,11 +139,15 @@ def breakdown(name: str, fn, reps: int = 5) -> None:
     print(f"breakdown {name}: device busy {busy / reps / 1e3:.4f} ms per "
           f"call, {100 * busy / wall_us:.1f}% of host wall time "
           f"{wall_us / reps / 1e3:.4f} ms")
-    for t, key in rows[:6]:
+    for t, key in rows[:8]:
         print(f"  {t / reps / 1e3:.4f} ms  {100 * t / busy:5.1f}%  {key[:70]}")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} != {b.shape}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -143,7 +156,7 @@ def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
                  seconds: float = GOLDEN_SECONDS) -> None:
     """Golden oracle on successive `step`-byte slices (each with its
     lookahead) while the time budget lasts; at least one slice."""
-    from pfac_tpu.backends import golden
+    from pfac_tpu_torch.backends import golden
 
     res = result[: host.shape[0]].cpu().numpy()
     look = automaton.max_pattern_len
@@ -168,11 +181,12 @@ def main() -> int:
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
+    from torch.profiler import ProfilerActivity, profile
+
     import pfac_tpu_torch as pt
-    from bench import snort_like_patterns
     from pfac_tpu_torch import _build
-    from pfac_tpu_torch.backends import (block_walk, csr_walk, pipeline,
-                                         sieve, walk)
+    from pfac_tpu_torch.backends import (block_walk, compact, csr_walk,
+                                         pipeline, sieve, walk)
     from pfac_tpu_torch.backends.csr_tables import build_csr_tables
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
     from pfac_tpu_torch.backends.sieve_tables import SieveTables
@@ -180,7 +194,7 @@ def main() -> int:
                                             dyngather_micro, gather_micro,
                                             gathers, harness,
                                             lanegather2_micro,
-                                            lanegather_micro)
+                                            lanegather_micro, rulesets)
     cuda_ms = gathers.cuda_ms
 
     # 1. the card
@@ -209,25 +223,27 @@ def main() -> int:
 
     # 4. set-up: the Snort workload (walk-table tier)
     t0 = time.perf_counter()
-    pats = snort_like_patterns()
+    pats = rulesets.snort_like_patterns()
     a = pt.Automaton.from_patterns(pats)
     m = pt.Matcher(automaton=a, device="cuda")
     eng = m._engine()
     rng = np.random.default_rng(42)
     rand = rng.integers(0, 256, size=CORPUS, dtype=np.uint8)
-    defcon = planted_text(rng, pats, CORPUS, 0.015)
+    defcon = rulesets.planted_text(rng, pats, CORPUS, 0.015)
     rand_d = torch.from_numpy(rand).to(dev)
     def_d = torch.from_numpy(defcon).to(dev)
     wt = eng.walk_tables
     print(f"workload: {len(pats)} patterns, max_len {a.max_pattern_len}, "
           f"{len(wt.steps)} walk steps, arenas "
           f"{eng._sieve.arena.numel() * 4} + {eng._walk.arena.numel() * 4} "
-          f"bytes; set-up {time.perf_counter() - t0:.1f} s")
+          f"bytes; K1 placement {sieve.placement_for(eng._sieve)} "
+          f"({sieve.smem_bytes('smem', eng._sieve)} B of shared memory); "
+          f"set-up {time.perf_counter() - t0:.1f} s")
 
     # the big ruleset (CSR tier)
     brng = np.random.default_rng(7)
     t0 = time.perf_counter()
-    bpats = clamav_like_patterns(brng)
+    bpats = rulesets.clamav_like_patterns(brng)
     ab = pt.Automaton.from_patterns(bpats)
     t_auto = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -246,11 +262,15 @@ def main() -> int:
     mb = pt.Matcher(automaton=ab, device="cuda")
     engb = mb._engine()
     assert engb.walk_tables is None and engb.csr_tables is not None
-    big = planted_text(brng, bpats, CORPUS, 0.002)
+    big = rulesets.planted_text(brng, bpats, CORPUS, 0.002)
     big_d = torch.from_numpy(big).to(dev)
+    big_place = sieve.placement_for(engb._sieve)
     print(f"big ruleset engine: sieve arena {engb._sieve.arena.numel() * 4} "
-          f"bytes, CSR arena {engb._csr.arena.numel() * 4} bytes; engine + "
-          f"corpus {time.perf_counter() - t0:.1f} s")
+          f"bytes (residuals from word {sieve.residual_offset(engb._sieve)}),"
+          f" K1 placement {big_place} "
+          f"({sieve.smem_bytes(big_place, engb._sieve)} B of shared memory "
+          f"per CTA); CSR arena {engb._csr.arena.numel() * 4} bytes; engine "
+          f"+ corpus {time.perf_counter() - t0:.1f} s")
 
     # Benchmark I and the mixed-density corpus (walk-table tier + escape)
     m1 = pt.Matcher([b"aaaa"], device="cuda")
@@ -263,65 +283,84 @@ def main() -> int:
     mm = pt.Matcher(mpats, device="cuda")
     engm = mm._engine()
     block = engm.tile_rows * 128
-    mixed = mixed_density(np.random.default_rng(3), mpats, MIXED, block)
+    thresh = block // block_walk.DENSE_ESCAPE_DIV
+    mixed = rulesets.mixed_density(np.random.default_rng(3), mpats, MIXED,
+                                   block)
     mix_d = torch.from_numpy(mixed).to(dev)
 
     # 5. each kernel against its plain version
-    sl = rand_d[:SLICE]
     npad_s = npad_for(SLICE)
-    mk, fk, ck = sieve.sieve(sl, SLICE, npad_s, eng._sieve)
-    mp, fp, cp = sieve.sieve_plain(sl, SLICE, npad_s, eng._sieve)
-    k1_err = max(max_abs_err(mk, mp), max_abs_err(ck, cp))
-    assert k1_err == 0 and torch.equal(mk, mp) and torch.equal(ck, cp), \
-        "K1 != plain"
-    sk, sp = sieve.compact(fk), sieve.compact(fp)
-    assert torch.equal(sk, sp), "K1 survivors != plain"
-    print(f"K1 vs plain: {SLICE // MB} MB random slice bit-equal "
-          f"({sk.numel()} survivors, per-block counts equal)")
+    k1 = {}
+    for nm, d, tabs, place in (("Snort", rand_d, eng._sieve, "smem"),
+                               ("100K", big_d, engb._sieve, "cluster"),
+                               ("100K", big_d, engb._sieve, "global")):
+        sl = d[:SLICE]
+        got = sieve.sieve(sl, SLICE, npad_s, tabs, placement=place)
+        want = sieve.sieve_plain(sl, SLICE, npad_s, tabs)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        assert err == 0, f"K1 {place} != plain"
+        k1[place] = err
+        print(f"K1 vs plain: {place} placement, {nm} arena, {SLICE // MB} MB "
+              f"slice: match, bitmap and per-block counts bit-equal "
+              f"({int(got[2].sum())} survivors)")
+    assert sieve.placement_for(eng._sieve) == "smem"
 
     npad = npad_for(CORPUS)
-    base, flags, _ = sieve.sieve(def_d, CORPUS, npad, eng._sieve)
-    surv = sieve.compact(flags)
+    base, bits, counts = sieve.sieve(def_d, CORPUS, npad, eng._sieve)
+    bbase, bbits, bcounts = sieve.sieve(big_d, CORPUS, npad, engb._sieve)
+    mbase, mbits, mcounts = sieve.sieve(mix_d, MIXED, npad_for(MIXED),
+                                        engm._sieve)
+    compact_err = 0
+    for nm, bt, cn, th in (("DEFCON-like", bits, counts, thresh),
+                           ("big-ruleset", bbits, bcounts, block + 1),
+                           ("mixed", mbits, mcounts, thresh)):
+        pk = compact.compact(bt, cn, th)
+        pp = compact.compact_plain(bt, cn, th)
+        compact_err = max(compact_err, max_abs_err(pk, pp))
+        assert compact_err == 0, f"compaction != plain on {nm}"
+        print(f"compaction vs plain: {nm}, {pk.numel()} positions, threshold "
+              f"{th}: bit-equal")
+    surv = compact.compact(bits, counts, thresh)
     out_k = base.clone()
     walk.walk(def_d, CORPUS, surv, out_k, eng._walk)
     out_p = base.clone()
     walk.walk_plain(def_d, CORPUS, surv, out_p, eng._walk)
     k2_err = max_abs_err(out_k, out_p)
-    assert k2_err == 0 and torch.equal(out_k, out_p), "K2 != plain"
-    print(f"K2 vs plain: DEFCON-like {CORPUS // MB} MB, {surv.numel()} survivors "
-          f"bit-equal ({int((out_k != base).sum())} deep matches)")
+    assert k2_err == 0, "K2 != plain"
+    k2_deep = int((out_k != base).sum())
+    print(f"K2 vs plain: DEFCON-like {CORPUS // MB} MB, {surv.numel()} "
+          f"survivors bit-equal ({k2_deep} deep matches)")
 
-    bbase, bflags, _ = sieve.sieve(big_d, CORPUS, npad, engb._sieve)
-    bsurv = sieve.compact(bflags)
+    bsurv = compact.compact(bbits, bcounts, block + 1)
     bout_k = bbase.clone()
     csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr)
     bout_p = bbase.clone()
     csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p, engb._csr)
     k4_err = max_abs_err(bout_k, bout_p)
-    assert k4_err == 0 and torch.equal(bout_k, bout_p), "CSR walk != plain"
+    assert k4_err == 0, "CSR walk != plain"
+    k4_deep = int((bout_k != bbase).sum())
     print(f"CSR walk vs plain: big-ruleset {CORPUS // MB} MB, {bsurv.numel()} "
-          f"survivors bit-equal ({int((bout_k != bbase).sum())} deep matches)")
+          f"survivors bit-equal ({k4_deep} deep matches)")
 
     k3_err = 0
     k3_inputs = {}
     for nm, d, e in (("all_match", a_d, eng1), ("mixed", mix_d, engm)):
         n = d.shape[0]
         npd = npad_for(n)
-        base3, flags3, counts3 = sieve.sieve(d, n, npd, e._sieve)
+        base3, _, counts3 = sieve.sieve(d, n, npd, e._sieve)
         esc = block_walk.escaped_blocks(counts3, npd)
-        mk3, fk3 = base3.clone(), flags3.clone()
-        block_walk.block_walk(d, n, counts3, mk3, fk3, e._walk)
-        mp3, fp3 = base3.clone(), flags3.clone()
-        block_walk.block_walk_plain(d, n, counts3, mp3, fp3, e._walk)
-        err = max(max_abs_err(mk3, mp3), max_abs_err(fk3, fp3))
-        assert err == 0 and torch.equal(mk3, mp3) and torch.equal(fk3, fp3), \
-            f"K3 != plain on {nm}"
+        mk3 = base3.clone()
+        block_walk.block_walk(d, n, counts3, mk3, e._walk)
+        mp3 = base3.clone()
+        block_walk.block_walk_plain(d, n, counts3, mp3, e._walk)
+        err = max_abs_err(mk3, mp3)
+        assert err == 0, f"K3 != plain on {nm}"
         k3_err = max(k3_err, err)
-        k3_inputs[nm] = (d, n, counts3, base3, flags3, e)
+        deep = int((mk3 != base3).sum())
+        k3_inputs[nm] = (d, n, counts3, base3, e, esc, deep)
         print(f"K3 vs plain: {nm} {n // MB} MB, {esc} of {counts3.numel()} "
-              f"blocks escaped, bit-equal ({int((mk3 != base3).sum())} deep "
-              f"matches)")
-    del mk, mp, fk, fp, out_p, bout_p, mp3, fp3
+              f"blocks escaped, bit-equal ({deep} deep matches)")
+    del mk3, mp3, out_p, bout_p, got, want
     torch.cuda.empty_cache()
 
     # 6. the main path on every corpus, counted
@@ -333,16 +372,38 @@ def main() -> int:
         ("no_match", m1, b_d, all_b, SLICE, 0.0),
         ("mixed", mm, mix_d, mixed, SLICE, 0.0),
     ]
-    torch.cuda.synchronize()
-    sieve.LAUNCHES = walk.LAUNCHES = 0
-    block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
-    results = [mt.match_device(d) for _, mt, d, _, _, _ in corpora]
-    torch.cuda.synchronize()
-    launches = {"sieve_kernel": sieve.LAUNCHES, "walk_kernel": walk.LAUNCHES,
+    counters = (sieve.LAUNCHES, compact.LAUNCHES)
+
+    def launches() -> dict[str, int]:
+        return {**sieve.LAUNCHES, **compact.LAUNCHES,
+                "walk_kernel": walk.LAUNCHES,
                 "block_walk_kernel": block_walk.LAUNCHES,
                 "csr_walk_kernel": csr_walk.LAUNCHES}
-    print(f"main path launches: {json.dumps(launches)}")
-    for (nm, mt, d, host, step, secs), res in zip(corpora, results):
+
+    torch.cuda.synchronize()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+    results, per_corpus = [], []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _, mt, d, _, _, _ in corpora:
+            before = launches()
+            results.append(mt.match_device(d))
+            after = launches()
+            per_corpus.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    main_launches = launches()
+    nonzero = sum(e.count for e in prof.key_averages()
+                  if e.key == "aten::nonzero")
+    print(f"main path launches: {json.dumps(main_launches)}; aten::nonzero "
+          f"calls: {nonzero}")
+    assert nonzero == 0, "the main path called torch.nonzero"
+    for (nm, mt, d, host, step, secs), res, per in zip(corpora, results,
+                                                       per_corpus):
+        assert sum(per[k] for k in sieve.LAUNCHES) == 1, (nm, per)
+        assert per["compact_scan_kernel"] == per["compact_kernel"] == 1, \
+            (nm, per)
         e = mt._engine()
         n = d.shape[0]
         npd = npad_for(n)
@@ -358,57 +419,126 @@ def main() -> int:
             esc = block_walk.escaped_blocks(cnt, npd)
         print(f"main path {nm}: {n // MB} MB equal to the plain pipeline; "
               f"{int((res > 0).sum())} matching positions; {esc} blocks "
-              f"escaped")
+              f"escaped; launches "
+              f"{json.dumps({k: v for k, v in per.items() if v})}")
         if nm in ("all_match", "mixed"):
             assert esc > 0, f"{nm}: the escape was not taken"
         golden_check(mt.automaton, host, res, nm, step, secs)
+    del results
+    torch.cuda.empty_cache()
 
     # 7. every kernel of the path ran
-    assert all(v > 0 for v in launches.values()), launches
+    path = ["sieve_smem_kernel", f"sieve_{big_place}_kernel",
+            "compact_scan_kernel", "compact_kernel", "walk_kernel",
+            "block_walk_kernel", "csr_walk_kernel"]
+    assert all(main_launches[k] > 0 for k in path), main_launches
 
-    # 8. times (CUDA events, median; card and limit above)
-    k1_ms = cuda_ms(lambda: sieve.sieve(rand_d, CORPUS, npad, eng._sieve))
+    # 8. times (CUDA events, median; card and limit above). A kernel's time
+    # is taken over batches of calls, so that it is the card's time and not
+    # the wrapper's host time; match_device is timed one call at a time,
+    # host included, as a caller sees it
+    nblocks = npad // block
+    batch = harness.BATCH
+    print(f"clocks before phase 8 (sm, max sm, power, temperature): "
+          f"{harness.clocks()}")
+
+    def k1_bytes(n: int, npd: int) -> int:
+        # input once; match, bitmap and counts written once
+        return n + 4 * npd + npd // 8 + 4 * (npd // block)
+
+    k1_ms = cuda_ms(lambda: sieve.sieve(rand_d, CORPUS, npad, eng._sieve),
+                    batch=batch)
     k1_plain = cuda_ms(
         lambda: sieve.sieve_plain(rand_d, CORPUS, npad, eng._sieve),
         reps=3, warmup=1)
-    k1_big = cuda_ms(lambda: sieve.sieve(big_d, CORPUS, npad, engb._sieve))
+    # the 100K arena's two placements, in turns within this run
+    turns = {"cluster": [], "global": []}
+    for place in ("cluster", "global", "global", "cluster"):
+        turns[place].append(cuda_ms(lambda: sieve.sieve(
+            big_d, CORPUS, npad, engb._sieve, placement=place), batch=batch))
+    k1_big = {p: float(np.median(v)) for p, v in turns.items()}
+    k1_big_plain = cuda_ms(
+        lambda: sieve.sieve_plain(big_d, CORPUS, npad, engb._sieve),
+        reps=3, warmup=1)
+    k1_bound = bound_ms(k1_bytes(CORPUS, npad))
+    print(f"time K1 sieve_smem_kernel {CORPUS // MB} MB random (Snort arena "
+          f"in shared memory): {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, "
+          f"bound {k1_bound:.4f} ms)  [{name_limit}]")
+    for place in ("cluster", "global"):
+        print(f"time K1 sieve_{place}_kernel {CORPUS // MB} MB big-ruleset "
+              f"(100K arena, {place}): {k1_big[place]:.4f} ms, turns "
+              f"{', '.join(f'{t:.4f}' for t in turns[place])} (plain "
+              f"{k1_big_plain:.3f} ms, bound {k1_bound:.4f} ms)  "
+              f"[{name_limit}]")
+
+    # compaction of the DEFCON-like survivors: the wrapper (two launches and
+    # the 4-byte copy of the total), each kernel's device time, the plain
+    # version and torch.nonzero over the same positions as uint8 flags
+    flags_u8 = sieve.unpack_bits(bits)
+    flags_u8.view(nblocks, -1)[counts >= thresh] = 0
+    assert torch.equal(torch.nonzero(flags_u8).reshape(-1).to(torch.int32),
+                       surv)
+    comp_ms = cuda_ms(lambda: compact.compact(bits, counts, thresh))
+    comp_plain = cuda_ms(lambda: compact.compact_plain(bits, counts, thresh),
+                         reps=3, warmup=1)
+    nonzero_ms = cuda_ms(lambda: torch.nonzero(flags_u8), batch=batch)
+    comp_dev = device_ms(lambda: compact.compact(bits, counts, thresh))
+    scan_ms = kernel_ms(comp_dev, "compact_scan_kernel")
+    expand_ms = kernel_ms(comp_dev, "compact_kernel")
+    live = int(((counts > 0) & (counts < thresh)).sum())
+    scan_bound = bound_ms(4 * nblocks + 4 * (nblocks + 1))
+    expand_bound = bound_ms(8 * nblocks + live * (block // 8)
+                            + 4 * surv.numel())
+    print(f"time compaction DEFCON-like {CORPUS // MB} MB, {surv.numel()} "
+          f"survivors: wrapper {comp_ms:.4f} ms (compact_scan_kernel "
+          f"{scan_ms:.4f} ms, bound {scan_bound:.4f}; compact_kernel "
+          f"{expand_ms:.4f} ms, bound {expand_bound:.4f}; torch.nonzero over "
+          f"uint8 flags {nonzero_ms:.4f} ms; plain {comp_plain:.3f} ms)  "
+          f"[{name_limit}]")
+    del flags_u8
+
     # the walks only write deep matches, so repeating one on one buffer
     # repeats the same work and leaves the same result
-    k2_ms = cuda_ms(lambda: walk.walk(def_d, CORPUS, surv, out_k, eng._walk))
+    k2_ms = cuda_ms(lambda: walk.walk(def_d, CORPUS, surv, out_k, eng._walk),
+                    batch=batch)
     out_p = base.clone()
     k2_plain = cuda_ms(
         lambda: walk.walk_plain(def_d, CORPUS, surv, out_p, eng._walk),
         reps=3, warmup=1)
     assert torch.equal(out_k, out_p)
     k4_ms = cuda_ms(
-        lambda: csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr))
+        lambda: csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr),
+        batch=batch)
     bout_p = bbase.clone()
     k4_plain = cuda_ms(
         lambda: csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p,
                                         engb._csr), reps=3, warmup=1)
     assert torch.equal(bout_k, bout_p)
-    d, n, counts3, base3, flags3, e = k3_inputs["all_match"]
-    mk3, fk3 = base3.clone(), flags3.clone()
-    k3_ms = cuda_ms(lambda: block_walk.block_walk(d, n, counts3, mk3, fk3,
-                                                  e._walk))
-    mp3, fp3 = base3.clone(), flags3.clone()
+    # a walk reads each survivor's position and at least its 4 entry
+    # bytes, and writes its deep match
+    k2_bound = bound_ms(8 * surv.numel() + 4 * k2_deep)
+    k4_bound = bound_ms(8 * bsurv.numel() + 4 * k4_deep)
+    d, n, counts3, base3, e, esc3, deep3 = k3_inputs["all_match"]
+    mk3 = base3.clone()
+    k3_ms = cuda_ms(lambda: block_walk.block_walk(d, n, counts3, mk3,
+                                                  e._walk), batch=batch)
+    mp3 = base3.clone()
     k3_plain = cuda_ms(lambda: block_walk.block_walk_plain(
-        d, n, counts3, mp3, fp3, e._walk), reps=3, warmup=1)
+        d, n, counts3, mp3, e._walk), reps=3, warmup=1)
     assert torch.equal(mk3, mp3)
-    del mk3, mp3, fk3, fp3
+    # the dense blocks' bytes read, their deep matches written
+    k3_bound = bound_ms(min(n, esc3 * block) + 4 * deep3)
+    del mk3, mp3, out_p, bout_p
     torch.cuda.empty_cache()
-    print(f"time K1 sieve_kernel {CORPUS // MB} MB random: {k1_ms:.4f} ms "
-          f"(plain {k1_plain:.3f} ms)  [{name_limit}]")
-    print(f"time K1 sieve_kernel {CORPUS // MB} MB big-ruleset "
-          f"({engb._sieve.arena.numel() * 4} B arena): {k1_big:.4f} ms  "
-          f"[{name_limit}]")
     print(f"time K2 walk_kernel {surv.numel()} DEFCON-like survivors: "
-          f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms)  [{name_limit}]")
-    print(f"time K3 block_walk_kernel all-match {BENCH1 // MB} MB "
-          f"({block_walk.escaped_blocks(counts3, npad_for(n))} blocks): "
-          f"{k3_ms:.4f} ms (plain {k3_plain:.3f} ms)  [{name_limit}]")
+          f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {k2_bound:.4f} "
+          f"ms)  [{name_limit}]")
+    print(f"time K3 block_walk_kernel all-match {BENCH1 // MB} MB ({esc3} "
+          f"blocks): {k3_ms:.4f} ms (plain {k3_plain:.3f} ms, bound "
+          f"{k3_bound:.4f} ms)  [{name_limit}]")
     print(f"time csr_walk_kernel {bsurv.numel()} big-ruleset survivors: "
-          f"{k4_ms:.4f} ms (plain {k4_plain:.3f} ms)  [{name_limit}]")
+          f"{k4_ms:.4f} ms (plain {k4_plain:.3f} ms, bound {k4_bound:.4f} "
+          f"ms)  [{name_limit}]")
     for nm, mt, d, _, _, _ in corpora:
         ms = cuda_ms(lambda: mt.match_device(d))
         n = d.shape[0]
@@ -419,9 +549,10 @@ def main() -> int:
     print(f"time all_match {BENCH1 // MB} MB escape disarmed (K2 over every "
           f"survivor): {ms:.4f} ms = {BENCH1 / ms / 1e6:.2f} GB/s  "
           f"[{name_limit}]")
-    for nm, mt, d in (("random", m, rand_d), ("defcon_like", m, def_d),
-                      ("big_ruleset", mb, big_d), ("all_match", m1, a_d)):
+    for nm, mt, d, _, _, _ in corpora:
         breakdown(nm, lambda: mt.match_device(d))
+    print(f"clocks after phase 8 (sm, max sm, power, temperature): "
+          f"{harness.clocks()}")
 
     # 9. the gather micro-benchmarks E1-E6 at full size and the sweep over
     # the four arenas, launch counts reset just before them
@@ -449,16 +580,18 @@ def main() -> int:
           f"the reference cases' numpy expectations")
     assert all(v > 0 for v in g_launches.values()), g_launches
     timed = [harness.measure(c, name_limit) for c in checked]
+    del checked
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
     def pick(kernel: str, *keys: str) -> dict:
         return next(t for t in timed if t["kernel"] == kernel
                     and all(k in t["name"] for k in keys))
 
-    # K1's table-load rate, timed as the cases are (batches of calls)
-    for nm, d, tabs, arena in (("Snort", rand_d, eng._sieve, "snort_sieve"),
-                               ("100K", big_d, engb._sieve, "100k_sieve")):
-        ms = cuda_ms(lambda: sieve.sieve(d, CORPUS, npad, tabs),
-                     batch=harness.BATCH)
+    # K1's table-load rate (its batched time from phase 8) beside G1's and
+    # G3's over the same arena
+    for nm, ms, tabs, arena in (
+            ("Snort", k1_ms, eng._sieve, "snort_sieve"),
+            ("100K", k1_big[big_place], engb._sieve, "100k_sieve")):
         loads = gather_micro.k1_loads(tabs.rows)
         g1 = pick("word_gather_kernel", arena, "G1 ldg")
         g3 = pick("chain_gather_kernel", arena, "ldg")
@@ -468,7 +601,7 @@ def main() -> int:
               f"{g1['lookups'] / g1['ms'] / 1e6:.2f}, G3 chain 4 ldg "
               f"{g3['lookups'] / g3['ms'] / 1e6:.2f} G lookups/s  "
               f"[{name_limit}]")
-    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
     rep = {"word_gather_kernel": pick("word_gather_kernel", "snort_sieve",
                                       "G1 ldg"),
            "tile_gather_kernel": pick("tile_gather_kernel", "E1 A"),
@@ -485,33 +618,42 @@ def main() -> int:
         "chain_gather_kernel": "experiments/dyngather_micro.py:40",
         "align_kernel": "experiments/align_micro.py:63"}
 
-    print(json.dumps({"kernels": [
-        {"name": "sieve_kernel", "route": "cuda",
-         "source": "pfac_tpu_torch/csrc/sieve.cu",
-         "replaces": "pfac_tpu/backends/pallas_sieve.py:418",
-         "launches": launches["sieve_kernel"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "walk_kernel", "route": "cuda",
-         "source": "pfac_tpu_torch/csrc/walk.cu",
-         "replaces": "pfac_tpu/backends/pallas_walk.py:360",
-         "launches": launches["walk_kernel"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "block_walk_kernel", "route": "cuda",
-         "source": "pfac_tpu_torch/csrc/walk.cu",
-         "replaces": "pfac_tpu/backends/pallas_sieve.py:678",
-         "launches": launches["block_walk_kernel"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain},
-        {"name": "csr_walk_kernel", "route": "cuda",
-         "source": "pfac_tpu_torch/csrc/csr_walk.cu",
-         "replaces": "pfac_tpu/backends/pallas_walk.py:664",
-         "launches": launches["csr_walk_kernel"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain},
-    ] + [
-        {"name": k, "route": "cuda",
-         "source": "pfac_tpu_torch/csrc/gather_micro.cu",
-         "replaces": replaces[k], "launches": g_launches[k],
-         "max_abs_err": g_err[k], "ms": rep[k]["ms"],
-         "plain_ms": rep[k]["plain_ms"]} for k in gathers.LAUNCHES]}))
+    def row(name, source, replaces_, err, ms_, plain_ms, bound, library=None):
+        return {"name": name, "route": "cuda",
+                "source": f"pfac_tpu_torch/csrc/{source}",
+                "replaces": replaces_, "launches": main_launches.get(name, 0),
+                "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": library}
+
+    kernels = [
+        row("sieve_smem_kernel", "sieve.cu",
+            "pfac_tpu/backends/pallas_sieve.py:418", k1["smem"], k1_ms,
+            k1_plain, k1_bound),
+        row(f"sieve_{big_place}_kernel", "sieve.cu",
+            "pfac_tpu/backends/pallas_sieve.py:418", k1[big_place],
+            k1_big[big_place], k1_big_plain, k1_bound),
+        row("compact_scan_kernel", "compact.cu",
+            "pfac_tpu/backends/pallas_sieve.py:882 (_compact, XLA)",
+            compact_err, scan_ms, comp_plain, scan_bound),
+        row("compact_kernel", "compact.cu",
+            "pfac_tpu/backends/pallas_sieve.py:882 (_compact, XLA)",
+            compact_err, expand_ms, comp_plain, expand_bound, nonzero_ms),
+        row("walk_kernel", "walk.cu", "pfac_tpu/backends/pallas_walk.py:360",
+            k2_err, k2_ms, k2_plain, k2_bound),
+        row("block_walk_kernel", "walk.cu",
+            "pfac_tpu/backends/pallas_sieve.py:678", k3_err, k3_ms, k3_plain,
+            k3_bound),
+        row("csr_walk_kernel", "csr_walk.cu",
+            "pfac_tpu/backends/pallas_walk.py:664", k4_err, k4_ms, k4_plain,
+            k4_bound),
+    ]
+    for k in gathers.LAUNCHES:
+        r = row(k, "gather_micro.cu", replaces[k], g_err[k], rep[k]["ms"],
+                rep[k]["plain_ms"], rep[k]["bound_ms"], rep[k]["library_ms"])
+        r["launches"] = g_launches[k]
+        kernels.append(r)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 Failureless Aho-Corasick) with hand-written Hopper kernels.
 
 A port of :mod:`pfac_tpu` beside it, with the same :class:`Matcher` API plus
-an explicit torch ``device``. The automaton compiler, status codes and the
-golden model are shared with :mod:`pfac_tpu`; this package never imports JAX.
+an explicit torch ``device``. It keeps its own copies of the reference's
+numpy host layers (automaton compiler, status codes, golden model,
+``StreamMatcher``) and imports neither JAX nor :mod:`pfac_tpu`.
 
     >>> import pfac_tpu_torch as pt
     >>> pt.Matcher([b"AB", b"ABG", b"BEDE", b"ED"], device="cpu").match(

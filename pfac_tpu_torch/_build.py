@@ -9,8 +9,8 @@ shared library, loaded with ``ctypes``:
     nvcc -shared -o _build/libpfac_kernels.so _build/*.o
 
 The build runs at first use, once per process (lock + cache, as
-``pfac_tpu.core.native`` does for its host library), into ``_build/`` beside
-this file, and is redone whenever a source is newer than the library. It
+``core.native`` does for the host library), into ``_build/`` beside this
+file, and is redone whenever a source is newer than the library. It
 writes to a temporary name and renames, so concurrent processes never load
 a half-written library. Nothing here runs at import time.
 """
@@ -34,14 +34,20 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int32
 _SIGNATURES = {
-    # device, data, n, npad, arena, desc, match, flags, counts, block, stream
-    "pfac_sieve": [ctypes.c_int, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # device, data, n, npad, arena, words, res_off, desc, placement, match,
+    # bits, counts, block, stream
+    "pfac_sieve": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                   _I, _P],
+    # device, counts, nblocks, thresh, offsets, stream
+    "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P],
+    # device, bits, counts, offsets, nblocks, block, thresh, pos, stream
+    "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
     # device, data, n, counts, nblocks, block, thresh, arena, desc, nsteps,
-    # out, flags, stream
+    # out, stream
     "pfac_block_walk": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _P, _P, _I,
-                        _P, _P, _P],
+                        _P, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
     # device, table, words, idx, n, placement, out, stream

@@ -1,17 +1,18 @@
-"""The device pipeline end to end: sieve, deep tier, result in place.
+"""The device pipeline end to end: sieve, compaction, deep tier, result in
+place.
 
 Counterpart of ``pfac_tpu.backends.pallas_sieve.build_pipeline``. K1 writes
-the exact depth-1..3 result of every position, the survivor flags and the
+the exact depth-1..3 result of every position, the survivor bitmap and the
 survivors of every block. The deep tier then writes matches of >= 4 bytes
 into K1's result in place:
 
 * walk-table tier: the dense-block escape (K3, ``block_walk.py``) walks
   every position of each block where at least a quarter of the positions
-  survive, and clears those blocks' flags; compaction lists the remaining
-  survivors in ascending order and K2 (``walk.py``) walks all of them in
-  one launch;
-* CSR tier (rulesets the walk tables cannot hold): compaction, then the CSR
-  walk (``csr_walk.py``) over every survivor in one launch.
+  survive; the compaction (``compact.py``) lists the survivors of the other
+  blocks in ascending order and K2 (``walk.py``) walks all of them in one
+  launch;
+* CSR tier (rulesets the walk tables cannot hold): compaction of every
+  survivor, then the CSR walk (``csr_walk.py``) in one launch.
 
 The reference gates its escape on ``max_len + 4 <= HALO_ROWS * LANES``: its
 K3 stages a block and a fixed lookahead in VMEM. K3 here reads bytes
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import block_walk as block_walk_mod
+from . import compact as compact_mod
 from . import csr_walk as csr_walk_mod
 from . import sieve as sieve_mod
 from . import walk as walk_mod
@@ -46,15 +48,22 @@ def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
     `plain=True` runs the plain torch versions on the data's device instead
     of the kernels (the reference the card run checks)."""
     sieve = sieve_mod.sieve_plain if plain else sieve_mod.sieve
-    match, flags, counts = sieve(data, n, npad, sieve_tabs, block)
+    compact = compact_mod.compact_plain if plain else compact_mod.compact
+    match, bits, counts = sieve(data, n, npad, sieve_tabs, block)
+    if walk_tabs is None and csr_tabs is None:
+        return match
+    armed = walk_tabs is not None and escape
+    if armed:
+        bw = (block_walk_mod.block_walk_plain if plain
+              else block_walk_mod.block_walk)
+        bw(data, n, counts, match, walk_tabs)
+    # no block reaches block + 1 survivors: disarmed, nothing is skipped
+    thresh = block // block_walk_mod.DENSE_ESCAPE_DIV if armed else block + 1
+    pos = compact(bits, counts, thresh)
     if walk_tabs is not None:
-        if escape:
-            bw = (block_walk_mod.block_walk_plain if plain
-                  else block_walk_mod.block_walk)
-            bw(data, n, counts, match, flags, walk_tabs)
         walk = walk_mod.walk_plain if plain else walk_mod.walk
-        walk(data, n, sieve_mod.compact(flags), match, walk_tabs)
-    elif csr_tabs is not None:
+        walk(data, n, pos, match, walk_tabs)
+    else:
         csr = csr_walk_mod.csr_walk_plain if plain else csr_walk_mod.csr_walk
-        csr(data, n, sieve_mod.compact(flags), match, csr_tabs)
+        csr(data, n, pos, match, csr_tabs)
     return match

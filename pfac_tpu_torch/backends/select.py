@@ -9,8 +9,7 @@ never silently picks another engine.
 """
 from __future__ import annotations
 
-from pfac_tpu.runtime.handle import PlacementMode
-
+from ..runtime.handle import PlacementMode
 from ..status import PfacError, PfacStatus
 from .sieve_matcher import SieveMatcher
 

@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from pfac_tpu.backends.golden import _as_u8, reduce_result
 
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
 from . import pipeline
 from .csr_tables import build_csr_tables
+from .golden import _as_u8, reduce_result
 from .sieve_tables import _VMEM_TABLE_BUDGET, LANES, SieveTables
 from .walk_tables import build_walk_tables_gated
 

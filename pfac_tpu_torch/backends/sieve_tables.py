@@ -11,7 +11,10 @@ lane-replicated planes, and decodes the packed forms once on the host:
   compare chain of <= 2 entries lands in the same table);
 * m2 (exact16 word ``key16 << 16 | id15``): split into key and value arrays,
   the same form as the wide tables;
-* alive (resid16, two residuals per word): one residual per slot.
+* alive (resid16, two residuals per word): one residual per slot on the
+  host; ``to_device`` packs them two per word again, as the reference
+  does, and lays them last in the arena, where K1 may split them across a
+  2-CTA cluster (``csrc/sieve.cu``).
 
 Keys compose little-endian, ``k4 = c3<<24 | c2<<16 | c1<<8 | c0``: m2 probes
 ``k4 & 0xFFFF``, m3 ``k4 & 0xFFFFFF`` and the alive filter all of ``k4``.
@@ -73,6 +76,15 @@ def unpack_u16(words: np.ndarray, size: int) -> np.ndarray:
     w = np.asarray(words, np.int64) & 0xFFFFFFFF
     out = np.stack([w & 0xFFFF, w >> 16], axis=1).reshape(-1)
     return out[:size].astype(np.int32)
+
+
+def pack_u16(vals: np.ndarray) -> np.ndarray:
+    """16-bit values -> int32 words, two per word, little half first."""
+    v = np.asarray(vals, np.int64) & 0xFFFF
+    if v.size % 2:
+        v = np.append(v, 0)
+    w = v[0::2] | (v[1::2] << 16)
+    return w.astype(np.uint32).view(np.int32)
 
 
 @dataclasses.dataclass
@@ -149,8 +161,16 @@ class SieveTables:
         return cls(m1=m1, m2=m2, m3=m3, alive=alive, vmem_bytes=vmem)
 
     def to_device(self, device) -> Packed:
-        """Arena: m1 at offset 0, then m2, m3, alive (descriptor rows 0-2)."""
-        return pack([self.m2, self.m3, self.alive], device, head=self.m1)
+        """Arena: m1 at offset 0, then m2, m3, alive (descriptor rows 0-2);
+        the alive residuals packed two per word (slot s in the low half of
+        word s // 2 when s is even, else the high half), the last array."""
+        alive = self.alive
+        if alive is not None:
+            alive = dataclasses.replace(alive, vals=pack_u16(alive.vals))
+        tabs = pack([self.m2, self.m3, alive], device, head=self.m1)
+        assert alive is None or (tabs.rows[2][5] + alive.vals.size
+                                 == tabs.arena.numel())
+        return tabs
 
 
 def _wide(ks: np.ndarray, vs: np.ndarray) -> FlatProbe:

@@ -1,11 +1,12 @@
-"""The automaton compiler, shared with the reference package.
+"""The automaton compiler: parser, trie, tables, CHD builders, automaton.
 
-Parsing, the trie, the CHD builders and the automaton are numpy host code
-and import no JAX, so the port imports them instead of copying them: both
-packages then compile the same automaton and build bit-identical tables.
+The port's own copies of ``pfac_tpu.core``'s numpy host modules, so that
+the port imports nothing of the reference package. Both packages compile
+the same automaton and build bit-identical tables from it
+(``tests/test_torch_core.py`` holds them equal).
 """
-from pfac_tpu.core import automaton, chd, native, parser, tables, trie
-from pfac_tpu.core.automaton import Automaton
+from . import automaton, chd, native, parser, tables, trie
+from .automaton import Automaton
 
 __all__ = ["Automaton", "automaton", "chd", "native", "parser", "tables",
            "trie"]

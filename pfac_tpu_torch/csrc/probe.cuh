@@ -41,28 +41,50 @@ __device__ __forceinline__ Probe load_probe(const int32_t* __restrict__ desc,
   return p;
 }
 
+// Table words read through the read-only cache (L1, then L2). The probes
+// below take any type whose operator[] returns the uint32 word at an arena
+// offset, so the sieve can also probe tables staged in shared memory.
+struct Ldg {
+  const int32_t* __restrict__ arena;
+  __device__ __forceinline__ uint32_t operator[](int64_t i) const {
+    return static_cast<uint32_t>(__ldg(arena + i));
+  }
+};
+
 __device__ __forceinline__ uint32_t word(const int32_t* __restrict__ arena,
                                          int64_t i) {
-  return static_cast<uint32_t>(__ldg(arena + i));
+  return Ldg{arena}[i];
 }
 
-__device__ __forceinline__ uint32_t probe_slot(
-    const int32_t* __restrict__ arena, const Probe& p, uint32_t key) {
+template <class Words>
+__device__ __forceinline__ uint32_t probe_slot(const Words& t, const Probe& p,
+                                               uint32_t key) {
   const uint32_t prod = key * p.mul;
   const uint32_t rmask = (1u << p.lg_r) - 1u;
   if (p.disp_off < 0) return (prod >> (32 - p.lg_r)) & rmask;
   const uint32_t bk = (prod >> (32 - p.lg_b)) & ((1u << p.lg_b) - 1u);
   const uint32_t h1 = (prod >> (32 - p.lg_b - p.lg_r)) & rmask;
-  return (h1 ^ word(arena, p.disp_off + bk)) & rmask;
+  return (h1 ^ t[p.disp_off + bk]) & rmask;
 }
 
 // Exact probe: true on a hit, with the slot's value in *val.
+template <class Words>
+__device__ __forceinline__ bool probe_exact(const Words& t, const Probe& p,
+                                            uint32_t key, uint32_t* val) {
+  const uint32_t s = probe_slot(t, p, key);
+  *val = t[p.val_off + s];
+  return t[p.key_off + s] == key;
+}
+
+__device__ __forceinline__ uint32_t probe_slot(
+    const int32_t* __restrict__ arena, const Probe& p, uint32_t key) {
+  return probe_slot(Ldg{arena}, p, key);
+}
+
 __device__ __forceinline__ bool probe_exact(const int32_t* __restrict__ arena,
                                             const Probe& p, uint32_t key,
                                             uint32_t* val) {
-  const uint32_t s = probe_slot(arena, p, key);
-  *val = word(arena, p.val_off + s);
-  return word(arena, p.key_off + s) == key;
+  return probe_exact(Ldg{arena}, p, key, val);
 }
 
 }  // namespace pfac

@@ -22,8 +22,8 @@
 // 128-byte row-gather windows, 32-way alignment and block halos are not
 // needed on this card.
 //
-// K2, walk_kernel: one thread per survivor position (from the sieve's
-// flags, any count, one launch). Bound: latency of dependent table loads
+// K2, walk_kernel: one thread per survivor position (from the compaction,
+// any count, one launch). Bound: latency of dependent table loads
 // (disp -> key/value per probe, up to three probes per step), not
 // bandwidth: survivors are under 1e-3 of the positions on the traffic in
 // PERF.md. The tables (<= 6 MB by the tier gate) stay resident in the
@@ -36,9 +36,9 @@
 // walking every position. Grid (blocks, block / kChunk): each CTA reads its
 // block's count and returns at once unless the block is dense, so the
 // launch needs no host round trip and costs a corpus without dense blocks
-// one near-empty pass over the counts. A dense CTA clears its chunk's flags
-// (compaction must not list those positions again) and walks every
-// position of the chunk below n. Bound: the same dependent table loads as
+// one near-empty pass over the counts. A dense CTA walks every position of
+// its chunk below n; the compaction (compact.cu) reads the same counts and
+// threshold and skips the block, so no survivor is walked twice. Bound: the same dependent table loads as
 // K2, for every position of a dense block; neighbouring threads take
 // neighbouring positions, so their corpus bytes share cache lines.
 #include <cuda_runtime.h>
@@ -112,13 +112,10 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
                   const int32_t* __restrict__ counts, int32_t block,
                   int32_t thresh, const int32_t* __restrict__ arena,
                   const int32_t* __restrict__ desc, int32_t nsteps,
-                  int32_t* __restrict__ out, uint8_t* __restrict__ flags) {
+                  int32_t* __restrict__ out) {
   if (counts[blockIdx.x] < thresh) return;       // uniform across the CTA
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * block +
                      static_cast<int64_t>(blockIdx.y) * kChunk;
-  uint4* f = reinterpret_cast<uint4*>(flags + c0);
-  for (int k = threadIdx.x; k < kChunk / 16; k += kBlockThreads)
-    f[k] = make_uint4(0u, 0u, 0u, 0u);
   const int64_t end = c0 + kChunk < n ? c0 + kChunk : n;
   for (int64_t p = c0 + threadIdx.x; p < end; p += kBlockThreads) {
     const uint32_t match = walk_position(data, n, static_cast<int32_t>(p),
@@ -148,15 +145,13 @@ extern "C" int pfac_walk(int device, const void* data, int32_t n,
 }
 
 // data: uint8[>= n]; counts: int32[nblocks] (K1's survivors per block);
-// out: int32[nblocks * block]; flags: uint8[nblocks * block], 16-byte
-// aligned; block % 8192 == 0. Launches on `stream`; returns
-// cudaGetLastError().
+// out: int32[nblocks * block]; block % 8192 == 0. Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
                                const void* counts, int32_t nblocks,
                                int32_t block, int32_t thresh,
                                const void* arena, const void* desc,
-                               int32_t nsteps, void* out, void* flags,
-                               void* stream) {
+                               int32_t nsteps, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nblocks <= 0) return 0;
@@ -167,6 +162,6 @@ extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
       static_cast<const uint8_t*>(data), n,
       static_cast<const int32_t*>(counts), block, thresh,
       static_cast<const int32_t*>(arena), static_cast<const int32_t*>(desc),
-      nsteps, static_cast<int32_t*>(out), static_cast<uint8_t*>(flags));
+      nsteps, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

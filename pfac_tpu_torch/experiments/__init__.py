@@ -8,5 +8,11 @@ its name, and runs on a GPU as
     python -m pfac_tpu_torch.experiments.<name>
 
 (from the repository's root), printing one line per case: the CUDA-event
-median, G lookups/s, the plain version's time, and ``equal=True``.
+median, G lookups/s, the plain version's time, the library call's time
+where one PyTorch call computes the same function, the bound, and
+``equal=True``.
+
+Beside them: ``rulesets`` makes the rulesets and corpora the card runs use
+from their seeds, and ``match_ab`` times ``match_device`` in checkouts of
+the repository in turns on one card.
 """

@@ -43,7 +43,9 @@ def case_align(dev, survivors: int = CAP) -> Case:
                 "align_kernel", survivors * W_OUT,
                 lambda: gathers.align(p, r, W_OUT),
                 lambda: gathers.align_plain(p, r, W_OUT),
-                align_expect(pos2d, raw))
+                align_expect(pos2d, raw),
+                # positions in; each output word read from raw and written
+                pos2d.nbytes + 2 * 4 * survivors * W_OUT)
 
 
 def cases(dev, survivors: int = CAP) -> Iterator[Case]:

@@ -17,16 +17,13 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from . import gathers
-from .harness import Case, main as _main
+from .harness import Case, main as _main, tile_case
 
 
 def _case(name: str, raw: np.ndarray, idx: np.ndarray, dev) -> Case:
-    t, i = torch.from_numpy(raw).to(dev), torch.from_numpy(idx).to(dev)
-    return Case(name, "tile_gather_kernel", idx.size,
-                lambda: gathers.tile_gather(t, i, 0),
-                lambda: gathers.tile_gather_plain(t, i, 0),
-                np.take_along_axis(raw, idx, axis=0))
+    return tile_case(name, torch.from_numpy(raw).to(dev),
+                     torch.from_numpy(idx).to(dev), 0,
+                     np.take_along_axis(raw, idx, axis=0))
 
 
 def cases(dev) -> Iterator[Case]:

@@ -115,8 +115,8 @@ def port_arenas(dev) -> tuple[dict[str, torch.Tensor], dict[str, int]]:
     """Build both rulesets as chip_smoke.py does; -> (arenas, K1 loads per
     position per ruleset)."""
     import pfac_tpu_torch as pt
-    from bench import snort_like_patterns
-    from chip_smoke import clamav_like_patterns
+
+    from .rulesets import clamav_like_patterns, snort_like_patterns
 
     eng = pt.Matcher(snort_like_patterns(), device=dev)._engine()
     engb = pt.Matcher(clamav_like_patterns(np.random.default_rng(7)),

@@ -203,6 +203,29 @@ def align_plain(pos: torch.Tensor, raw: torch.Tensor,
                         rows).reshape(groups * w_out * 8, 128)
 
 
+def word_gather_library(table: torch.Tensor,
+                        idx: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """G1's yardstick: one ``torch.take`` with int64 indices made here,
+    outside any timing. The port never calls it."""
+    idx64 = idx.long()
+    return lambda: torch.take(table, idx64)
+
+
+def tile_gather_library(tile: torch.Tensor, idx: torch.Tensor,
+                        axis: int) -> Callable[[], torch.Tensor]:
+    """G2's yardstick: one ``torch.gather`` (along axis 1 over the tile
+    expanded to the indices' rows, a view) with int64 indices made here,
+    outside any timing. The port never calls it."""
+    if axis == 0:
+        idx64 = idx.long()
+        return lambda: torch.gather(tile, 0, idx64)
+    rows, cols = tile.shape
+    reps = idx.shape[0] // rows
+    idx64 = idx.long().view(reps, rows, -1)
+    big = tile.expand(reps, rows, cols)
+    return lambda: torch.gather(big, 2, idx64)
+
+
 def cuda_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
             batch: int = 1) -> float:
     """Median CUDA-event time of fn() in ms, after warm-up: each of `reps`

@@ -20,6 +20,7 @@ import torch
 from . import gathers
 
 BATCH = 10      # calls per timed sample: short cases measure launch cost
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
 
 
 @dataclasses.dataclass
@@ -30,6 +31,14 @@ class Case:
     run: Callable[[], torch.Tensor]
     plain: Callable[[], torch.Tensor]
     expect: np.ndarray | None    # the reference case's result, from numpy
+    bytes: int = 0               # the bound's bytes: inputs once, output once
+    library: Callable[[], torch.Tensor] | None = None   # one PyTorch call
+
+    @property
+    def bound_ms(self) -> float:
+        """The least time the card could take: the bytes the function must
+        move over the device memory's peak rate."""
+        return self.bytes / HBM_BYTES_PER_S * 1e3
 
 
 @dataclasses.dataclass
@@ -46,10 +55,12 @@ def word_cases(label: str, table: torch.Tensor, idx: torch.Tensor,
     table too large for shared memory gives a Refusal there."""
     for p in placements:
         name = f"{label} {p}"
+        library = None
         if chain is None:
             kernel, lookups = "word_gather_kernel", idx.numel()
             run = (lambda p=p: gathers.word_gather(table, idx, p))
             plain = (lambda: gathers.word_gather_plain(table, idx))
+            library = gathers.word_gather_library(table, idx)
         else:
             kernel, lookups = "chain_gather_kernel", idx.numel() * chain
             run = (lambda p=p: gathers.chain_gather(table, idx, chain, p,
@@ -59,7 +70,18 @@ def word_cases(label: str, table: torch.Tensor, idx: torch.Tensor,
         if p == "smem" and table.numel() > gathers.SMEM_WORDS:
             yield Refusal(name, run)
         else:
-            yield Case(name, kernel, lookups, run, plain, expect)
+            yield Case(name, kernel, lookups, run, plain, expect,
+                       8 * idx.numel() + 4 * table.numel(), library)
+
+
+def tile_case(name: str, tile: torch.Tensor, idx: torch.Tensor, axis: int,
+              expect: np.ndarray) -> Case:
+    """G2 on one tile along `axis`, with torch.gather as its yardstick."""
+    return Case(name, "tile_gather_kernel", idx.numel(),
+                lambda: gathers.tile_gather(tile, idx, axis),
+                lambda: gathers.tile_gather_plain(tile, idx, axis), expect,
+                8 * idx.numel() + 4 * tile.numel(),
+                gathers.tile_gather_library(tile, idx, axis))
 
 
 def check(case: Case) -> int:
@@ -86,24 +108,38 @@ def refuse(r: Refusal) -> str:
 
 
 def measure(case: Case, label: str) -> dict:
-    """CUDA-event medians of the case and its plain version, each over
-    batches of BATCH calls; prints one line. Call check() first."""
+    """CUDA-event medians of the case, its plain version and its library
+    call, each over batches of BATCH calls; prints one line. Call check()
+    first."""
     plain_ms = gathers.cuda_ms(case.plain, reps=5, warmup=1, batch=BATCH)
     ms = gathers.cuda_ms(case.run, batch=BATCH)
+    library_ms = (None if case.library is None else
+                  gathers.cuda_ms(case.library, batch=BATCH))
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     print(f"time {case.name}: {ms:.4f} ms, {case.lookups / ms / 1e6:.2f} G "
-          f"lookups/s, plain {plain_ms:.4f} ms, equal=True ({case.kernel})  "
-          f"[{label}]", flush=True)
+          f"lookups/s, plain {plain_ms:.4f} ms{lib}, bound "
+          f"{case.bound_ms:.4f} ms, equal=True ({case.kernel})  [{label}]",
+          flush=True)
     return {"name": case.name, "kernel": case.kernel, "ms": ms,
-            "plain_ms": plain_ms, "lookups": case.lookups}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": case.bound_ms, "lookups": case.lookups}
+
+
+def _smi(fields: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return _smi("name,power.limit")
+
+
+def clocks() -> str:
+    """The SM clock, its maximum, power draw and temperature now."""
+    return _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
 
 
 def main(make: Callable[[torch.device], Iterable[Case | Refusal]]) -> int:

@@ -17,8 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from . import gathers
-from .harness import Case, Refusal, main as _main, word_cases
+from .harness import (Case, Refusal, main as _main, tile_case,
+                      word_cases)
 
 LANES = 128
 N_IDX = 16 << 20
@@ -29,12 +29,10 @@ def case_lane_gather_correct(dev) -> Case:
     rng = np.random.default_rng(1)
     t = rng.integers(0, 1 << 20, size=(8, LANES)).astype(np.int32)
     idx = rng.integers(0, LANES, size=(8, LANES)).astype(np.int32)
-    tt, ti = torch.from_numpy(t).to(dev), torch.from_numpy(idx).to(dev)
-    return Case("E6 lane-gather semantics (8,128) axis 1",
-                "tile_gather_kernel", idx.size,
-                lambda: gathers.tile_gather(tt, ti, 1),
-                lambda: gathers.tile_gather_plain(tt, ti, 1),
-                np.take_along_axis(t, idx, axis=1))
+    return tile_case("E6 lane-gather semantics (8,128) axis 1",
+                     torch.from_numpy(t).to(dev),
+                     torch.from_numpy(idx).to(dev), 1,
+                     np.take_along_axis(t, idx, axis=1))
 
 
 def case_planes(w_words: int, dev,

@@ -21,8 +21,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from . import gathers
-from .harness import Case, Refusal, main as _main, word_cases
+from .harness import (Case, Refusal, main as _main, tile_case,
+                      word_cases)
 
 LANES = 128
 N_IDX = 16 << 20
@@ -35,10 +35,9 @@ def case_lane_gather(dev, n_idx: int = N_IDX) -> Case:
     idx = rng.integers(0, LANES, size=(n_idx // LANES, LANES)).astype(np.int32)
     expect = np.take_along_axis(np.tile(tab, (idx.shape[0] // 8, 1)), idx,
                                 axis=1)
-    t, i = torch.from_numpy(tab).to(dev), torch.from_numpy(idx).to(dev)
-    return Case("E1 A lane_gather (8,128) tile, axis 1", "tile_gather_kernel",
-                idx.size, lambda: gathers.tile_gather(t, i, 1),
-                lambda: gathers.tile_gather_plain(t, i, 1), expect)
+    return tile_case("E1 A lane_gather (8,128) tile, axis 1",
+                     torch.from_numpy(tab).to(dev),
+                     torch.from_numpy(idx).to(dev), 1, expect)
 
 
 def case_word_lookup(w_words: int, dev,

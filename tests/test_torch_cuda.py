@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions and the golden model,
 on the card (bit-exact, tolerance 0). Marked ``cuda``: they skip where
-``torch.cuda.is_available()`` is false. This file imports no JAX, so the
-card's host runs it without the repo's conftest:
+``torch.cuda.is_available()`` is false. This file imports neither JAX nor
+the reference package, so the card's host runs it without the repo's
+conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -10,9 +11,8 @@ import pytest
 import torch
 
 import pfac_tpu_torch as pt
-from pfac_tpu.backends import golden
-from pfac_tpu_torch.backends import (block_walk, csr_walk, pipeline, sieve,
-                                     sieve_matcher, walk)
+from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, golden,
+                                     pipeline, sieve, sieve_matcher, walk)
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
                                         dyngather_micro, gather_micro,
@@ -54,10 +54,11 @@ def test_kernels_match_plain(dev, n):
     host = _corpus(rng, pats, max(n, 200))[:n]
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    mk, fk, ck = sieve.sieve(data, n, npad, eng._sieve)
-    mp, fp, cp = sieve.sieve_plain(data, n, npad, eng._sieve)
-    assert torch.equal(mk, mp) and torch.equal(fk, fp) and torch.equal(ck, cp)
-    pos = sieve.compact(fk)
+    mk, bk, ck = sieve.sieve(data, n, npad, eng._sieve)
+    mp, bp, cp = sieve.sieve_plain(data, n, npad, eng._sieve)
+    assert torch.equal(mk, mp) and torch.equal(bk, bp) and torch.equal(ck, cp)
+    pos = compact.compact(bk, ck, sieve.BLOCK + 1)
+    assert torch.equal(pos, compact.compact_plain(bp, cp, sieve.BLOCK + 1))
     out_k, out_p = mk.clone(), mk.clone()
     walk.walk(data, n, pos, out_k, eng._walk)
     walk.walk_plain(data, n, pos, out_p, eng._walk)
@@ -82,9 +83,12 @@ def test_launch_counters(dev):
     pats, rng = _ruleset(7)
     m = pt.Matcher(pats, device=dev)
     data = torch.from_numpy(_corpus(rng, pats, 1 << 20)).to(dev)
-    sieve.LAUNCHES = walk.LAUNCHES = block_walk.LAUNCHES = 0
+    _zero(sieve.LAUNCHES, compact.LAUNCHES)
+    walk.LAUNCHES = block_walk.LAUNCHES = 0
     m.match_device(data)
-    assert sieve.LAUNCHES == 1 and walk.LAUNCHES == 1
+    assert sum(sieve.LAUNCHES.values()) == 1 and walk.LAUNCHES == 1
+    assert sieve.LAUNCHES["sieve_smem_kernel"] == 1
+    assert compact.LAUNCHES == {"compact_scan_kernel": 1, "compact_kernel": 1}
     assert block_walk.LAUNCHES == 1      # armed: one launch, no dense block
 
 
@@ -118,13 +122,16 @@ def test_block_walk_matches_plain(dev, n):
     host = _dense_corpus(n)
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    match, flags, counts = sieve.sieve(data, n, npad, eng._sieve)
+    match, bits, counts = sieve.sieve(data, n, npad, eng._sieve)
     assert block_walk.escaped_blocks(counts, npad) >= 1
-    mk, fk = match.clone(), flags.clone()
-    block_walk.block_walk(data, n, counts, mk, fk, eng._walk)
-    block_walk.block_walk_plain(data, n, counts, match, flags, eng._walk)
+    mk = match.clone()
+    block_walk.block_walk(data, n, counts, mk, eng._walk)
+    block_walk.block_walk_plain(data, n, counts, match, eng._walk)
     torch.cuda.synchronize()
-    assert torch.equal(mk, match) and torch.equal(fk, flags)
+    assert torch.equal(mk, match)
+    thresh = sieve.BLOCK // block_walk.DENSE_ESCAPE_DIV
+    assert torch.equal(compact.compact(bits, counts, thresh),
+                       compact.compact_plain(bits, counts, thresh))
     res = m.match_device(data)
     assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
                                          plain=True))
@@ -150,16 +157,17 @@ def test_csr_tier_on_card(dev, n):
     host = _corpus(rng, pats, max(n, 200))[:n]
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    match, flags, _ = sieve.sieve(data, n, npad, eng._sieve)
-    pos = sieve.compact(flags)
+    match, bits, counts = sieve.sieve(data, n, npad, eng._sieve)
+    pos = compact.compact(bits, counts, sieve.BLOCK + 1)
     out_k, out_p = match.clone(), match.clone()
     csr_walk.csr_walk(data, n, pos, out_k, eng._csr)
     csr_walk.csr_walk_plain(data, n, pos, out_p, eng._csr)
     torch.cuda.synchronize()
     assert torch.equal(out_k, out_p)
-    sieve.LAUNCHES = csr_walk.LAUNCHES = block_walk.LAUNCHES = 0
+    _zero(sieve.LAUNCHES)
+    csr_walk.LAUNCHES = block_walk.LAUNCHES = 0
     res = m.match_device(data)
-    assert sieve.LAUNCHES == 1 and block_walk.LAUNCHES == 0
+    assert sum(sieve.LAUNCHES.values()) == 1 and block_walk.LAUNCHES == 0
     assert csr_walk.LAUNCHES == (1 if pos.numel() else 0)
     assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, None,
                                          eng._csr, plain=True))
@@ -179,6 +187,63 @@ def test_forced_csr_tier_on_card(dev, monkeypatch):
     m = pt.Matcher(pats, device=dev)
     assert m._engine().csr_tables is not None
     assert torch.equal(m.match_device(data), walk_res)
+
+
+def _zero(*counts: dict) -> None:
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+@pytest.mark.parametrize("placement", sieve.PLACEMENTS)
+@pytest.mark.parametrize("n", [5, 65536, 300_001, 3 << 20])
+def test_sieve_placements_match_plain(dev, placement, n):
+    # every placement, forced, on a walk-tier and a CSR-tier ruleset
+    for pats, rng in (_ruleset(n + 1), _csr_ruleset()):
+        tabs = pt.Matcher(pats, device=dev)._engine()._sieve
+        host = _corpus(rng, pats, max(n, 200))[:n]
+        data = torch.from_numpy(host).to(dev)
+        npad = npad_for(n)
+        _zero(sieve.LAUNCHES)
+        got = sieve.sieve(data, n, npad, tabs, placement=placement)
+        assert sieve.LAUNCHES[f"sieve_{placement}_kernel"] == 1
+        want = sieve.sieve_plain(data, n, npad, tabs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_sieve_placement_rule(dev):
+    small = pt.Matcher(_ruleset(3)[0], device=dev)._engine()._sieve
+    assert sieve.placement_for(small) == "smem"
+    # 100,000 distinct 4-byte prefixes: 2^17 residual slots, 256 KiB packed
+    big = sieve_matcher.SieveTables.build(pt.Automaton.from_patterns(
+        [bytes([i >> 16, (i >> 8) & 255, i & 255, 7, 9])
+         for i in range(100_000)])).to_device(dev)
+    assert sieve.placement_for(big) == "cluster"
+    with pytest.raises(ValueError, match="shared memory"):
+        sieve.sieve(torch.zeros(8192, dtype=torch.uint8, device=dev), 8192,
+                    65536, big, placement="smem")
+
+
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.3, 1.0])
+@pytest.mark.parametrize("block", [8192, 65536])
+def test_compact_kernel_matches_plain(dev, density, block):
+    rng = np.random.default_rng(int(density * 1e4) + block)
+    npad = 37 * block
+    flags = torch.from_numpy((rng.random(npad) < density).astype(np.uint8))
+    if density < 1.0:
+        flags[5 * block:6 * block] = 1          # one dense block
+    flags[-1] = 1                       # the last word of the last block
+    flags = flags.to(dev)
+    bits = sieve.pack_bits(flags)
+    counts = flags.view(-1, block).sum(1, dtype=torch.int32)
+    for thresh in (block // 4, block + 1, 1):
+        _zero(compact.LAUNCHES)
+        got = compact.compact(bits, counts, thresh)
+        assert compact.LAUNCHES == {"compact_scan_kernel": 1,
+                                    "compact_kernel": 1}
+        assert torch.equal(got, compact.compact_plain(bits, counts, thresh))
 
 
 def _words(dev, w: int, n: int, seed: int):

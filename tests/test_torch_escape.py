@@ -11,7 +11,7 @@ import torch
 import pfac_tpu.backends.pallas_sieve as S
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import golden
-from pfac_tpu_torch.backends import block_walk, pipeline, sieve
+from pfac_tpu_torch.backends import block_walk, compact, pipeline, sieve
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 
 BLOCK = 8192
@@ -115,24 +115,35 @@ def test_block_counts_equal_reference_bitmap():
     want = per_row.reshape(-1, BLOCK // 1024).sum(axis=1)
     m = pt.Matcher(pats, device="cpu", tile=BLOCK)
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-    _, flags, counts = sieve.sieve(t, n, npad, m._engine()._sieve, BLOCK)
+    _, bits, counts = sieve.sieve(t, n, npad, m._engine()._sieve, BLOCK)
     assert counts.tolist() == want.tolist()
-    assert counts.tolist() == flags.view(-1, BLOCK).sum(1).tolist()
+    assert counts.tolist() == sieve.unpack_bits(bits).view(-1, BLOCK).sum(
+        1).tolist()
     assert counts[1] >= BLOCK // block_walk.DENSE_ESCAPE_DIV > counts[0]
 
 
 def test_block_walk_plain_clears_only_dense_blocks():
+    # K3 no longer clears flags: the compaction leaves out exactly the
+    # dense blocks, whose positions K3 walked, and lists every survivor of
+    # the others
     pats, data = _mixed()
     m = pt.Matcher(pats, device="cpu", tile=BLOCK)
     eng = m._engine()
     n = len(data)
     npad = npad_for(n, eng.tile_rows)
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-    match, flags, counts = sieve.sieve(t, n, npad, eng._sieve, BLOCK)
-    before = flags.clone()
-    block_walk.block_walk(t, n, counts, match, flags, eng._walk)
-    dense = counts >= BLOCK // block_walk.DENSE_ESCAPE_DIV
-    f, b = flags.view(-1, BLOCK), before.view(-1, BLOCK)
-    assert not f[dense].any() and torch.equal(f[~dense], b[~dense])
+    match, bits, counts = sieve.sieve(t, n, npad, eng._sieve, BLOCK)
+    before = bits.clone()
+    block_walk.block_walk(t, n, counts, match, eng._walk)
+    assert torch.equal(bits, before)
+    thresh = BLOCK // block_walk.DENSE_ESCAPE_DIV
+    dense = counts >= thresh
+    flags = sieve.unpack_bits(bits).view(-1, BLOCK)
+    pos = compact.compact(bits, counts, thresh)
+    assert not bool(dense[pos.long() // BLOCK].any())
+    want = torch.nonzero(flags[~dense].reshape(-1)).reshape(-1)
+    keep = torch.nonzero(~dense).reshape(-1)
+    want = keep[want // BLOCK] * BLOCK + want % BLOCK
+    assert pos.tolist() == want.tolist() and dense.any()
     with pytest.raises(ValueError):
-        block_walk.block_walk(t, n, counts[:3], match, flags, eng._walk)
+        block_walk.block_walk(t, n, counts[:3], match, eng._walk)

@@ -8,7 +8,7 @@ import torch
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import golden
 from pfac_tpu.backends.pallas_sieve import SieveMatcher as RefSieveMatcher
-from pfac_tpu_torch.backends import block_walk, sieve
+from pfac_tpu_torch.backends import block_walk, compact, sieve
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 
 README = [b"AB", b"ABG", b"BEDE", b"ED"]
@@ -76,11 +76,12 @@ def test_dense_block_survivors():
     eng = m._engine()
     n, npad = len(data), npad_for(len(data), eng.tile_rows)
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
-    match, flags, counts = sieve.sieve(t, n, npad, eng._sieve, 8192)
+    match, bits, counts = sieve.sieve(t, n, npad, eng._sieve, 8192)
     assert int(counts[0]) > 8192 // 4
     assert block_walk.escaped_blocks(counts, npad) == 1
-    block_walk.block_walk(t, n, counts, match, flags, eng._walk)
-    assert not flags.any()                 # compaction sees no survivor
+    block_walk.block_walk(t, n, counts, match, eng._walk)
+    # compaction lists no survivor of the escaped block
+    assert compact.compact(bits, counts, 8192 // 4).numel() == 0
     assert match[:n].tolist() == m.match(data).tolist()
 
 

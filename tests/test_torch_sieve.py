@@ -5,9 +5,10 @@ The reference kernel runs as ``build_pipeline(..., kernel_only=True,
 interpret=True)`` with 64-row tiles; its survivor bitmap is decoded as
 position ``g*1024 + s*128 + j`` for bit s of lane j in bitmap row g
 (pallas_sieve._compact). The port's match tile must equal the kernel's on
-[0, n) (zeros past n) and its survivor positions must equal the decoded
-bitmap's, and its per-block survivor counts the bitmap's counts over the
-same blocks.
+[0, n) (zeros past n); the port's bitmap (bit j of word w: position
+32w + j), decoded with numpy, must list the reference bitmap's positions,
+and so must the plain compaction; its per-block survivor counts must be
+the bitmap's counts over the same blocks.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 import pfac_tpu.backends.pallas_sieve as S
-from pfac_tpu_torch.backends import sieve
+from pfac_tpu_torch.backends import compact, sieve
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 from pfac_tpu_torch.backends.sieve_tables import SieveTables
 from pfac_tpu_torch.core import Automaton
@@ -30,6 +31,12 @@ def _bitmap_positions(bits: np.ndarray) -> np.ndarray:
         w = int(bits[g, j]) & 0xFF
         out += [g * 1024 + s * 128 + j for s in range(8) if (w >> s) & 1]
     return np.array(sorted(out), dtype=np.int64)
+
+
+def _port_bitmap_positions(bits: np.ndarray) -> np.ndarray:
+    flags = np.unpackbits(np.ascontiguousarray(bits).view(np.uint8),
+                          bitorder="little")
+    return np.nonzero(flags)[0]
 
 
 def _compare(pats, data: bytes):
@@ -49,11 +56,15 @@ def _compare(pats, data: bytes):
     tabs = SieveTables.build(a).to_device("cpu")
     t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
     pnpad = npad_for(n)
-    match, flags, counts = sieve.sieve(t, n, pnpad, tabs)
+    match, bits, counts = sieve.sieve(t, n, pnpad, tabs)
     got = match.numpy()
     assert np.array_equal(got[:n], want)
     assert not got[n:].any()
-    assert np.array_equal(sieve.compact(flags).numpy(), want_pos)
+    assert bits.dtype == torch.int32 and bits.shape[0] == pnpad // 32
+    assert np.array_equal(_port_bitmap_positions(bits.numpy()), want_pos)
+    # no block is dense at a threshold above the block
+    pos = compact.compact_plain(bits, counts, sieve.BLOCK + 1)
+    assert np.array_equal(pos.numpy(), want_pos)
     # survivors per 64K block: the bitmap's positions counted by block
     assert np.array_equal(counts.numpy(), np.bincount(
         want_pos // sieve.BLOCK, minlength=pnpad // sieve.BLOCK))
