@@ -42,16 +42,23 @@ Phases, each on lines of its own:
    version, its library yardstick where one PyTorch call computes the same
    function (``torch.nonzero`` over uint8 flags for the compaction), and
    its bound; the compaction's two kernels by torch.profiler; the 100K
-   arena's two placements in turns; match_device end to end on every
-   corpus and the all-match corpus with the escape disarmed; torch.profiler
-   breakdowns; the card's clocks before and after;
+   arena's two placements in turns; K3 on the all-match, mixed and random
+   corpora (batched and by torch.profiler, with its bound, the arena words
+   resident in shared memory and the tiles walked); match_device end to end
+   on every corpus and the all-match corpus with the escape disarmed;
+   torch.profiler breakdowns (a kernel's profiler time is the median over
+   the launches the profiler recorded; it may record fewer than were
+   made); the card's clocks before and after;
 9. the table-probe micro-benchmarks (``pfac_tpu_torch.experiments``, the
    counterparts of the reference's E1-E6) at full size, and G1/G3 over the
    four arenas built above, launch counts reset just before them: every
    case bit-equal to its plain version and to the reference case's numpy
    expectation, every placement that must refuse its table refused, each
-   of the four kernels G1-G4 launched; then a ``time`` line per case (with
-   ``torch.take`` / ``torch.gather`` beside G1 / G2).
+   of the kernels G1-G4 launched (G2's two, staged and direct); then a
+   ``time`` line per case (with ``torch.take`` / ``torch.gather`` beside
+   G1 / G2; E5's shapes also on the path the rule did not pick), and for
+   the launch-bound G2 cases the card's own time of the kernel and of
+   ``torch.gather``'s (torch.profiler).
 
 Then one JSON line of per-kernel results (every kernel of the main path and
 G1-G4, each with its bound and library time), and last
@@ -85,62 +92,87 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM * 1e3
 
 
-def device_ms(fn, reps: int = 10) -> dict[str, float]:
-    """torch.profiler device time per call of each kernel fn launches."""
+def profiled(fn, reps: int, need: tuple = ()):
+    """`reps` calls of fn under torch.profiler -> ([(device ms of a launch,
+    launches recorded, kernel name)], host wall ms per call), the
+    device-side events only (kernels, copies: a CPU op's device time
+    repeats the time of the kernels it launched). The profiler's sums are
+    not to be divided by the calls made: it may record fewer launches than
+    were made, or more events than launches, and now and then none of a
+    window (seen on a process's first CUDA window). So a kernel's time is
+    the median over the events recorded with a duration, and the window is
+    repeated, at most four times, until it shows device time and every
+    kernel named in `need`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        spans: dict[str, list[float]] = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                spans.setdefault(e.key, []).append(e.self_device_time_total)
+        rows = sorted(((float(np.median(v)) / 1e3, len(v), key)
+                       for key, v in spans.items()), reverse=True)
+        if rows and all(any(is_kernel(key, k) for _, _, key in rows)
+                        for k in need):
+            break
+    return rows, wall_ms
 
 
-def kernel_ms(times: dict[str, float], kernel: str) -> float:
-    """The device time of the kernel named `kernel` in device_ms's dict."""
-    hits = [t for k, t in times.items() if f"{kernel}(" in k]
-    if len(hits) != 1:
-        raise AssertionError(f"{kernel}: not one profiler row in {times}")
+def is_kernel(key: str, kernel: str) -> bool:
+    """Whether the profiler row `key` is the kernel named `kernel`
+    (a plain function or a template's instance)."""
+    return f"{kernel}(" in key or f"{kernel}<" in key
+
+
+def device_ms(fn, reps: int = 10, need: tuple = ()) -> dict[str, float]:
+    """torch.profiler device time of a launch of each kernel fn launches
+    (the median over the launches it recorded)."""
+    return {key: t for t, _, key in profiled(fn, reps, need)[0]}
+
+
+def kernel_ms(times: dict[str, float], kernel: str,
+              wrapper_ms: float) -> float:
+    """The device time of the kernel named `kernel` in device_ms's dict.
+    Where the profiler recorded none of its launches in any window, the
+    CUDA-event time of the wrapper call that launches it stands in, and a
+    line says so."""
+    hits = [t for k, t in times.items() if is_kernel(k, kernel)]
+    if len(hits) > 1:
+        raise AssertionError(f"{kernel}: several profiler rows in {times}")
+    if not hits:
+        print(f"profiler: no launch of {kernel} recorded; its wrapper's "
+              f"CUDA-event time {wrapper_ms:.4f} ms stands in")
+        return wrapper_ms
     return hits[0]
 
 
 def breakdown(name: str, fn, reps: int = 5) -> None:
     """Device time by kernel over `reps` calls (torch.profiler), and the
-    device's busy share of the host wall time of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): a CPU op's device time
-    # repeats the time of the kernels it launched
-    rows = sorted(((e.self_device_time_total, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(t for t, _ in rows)
+    device's busy share of the host wall time of the window; a call's busy
+    time is the sum of its kernels' times (no kernel runs twice in a
+    call)."""
+    rows, wall_ms = profiled(fn, reps)
     if not rows:
         print(f"breakdown {name}: the profiler saw no device time")
         return
-    print(f"breakdown {name}: device busy {busy / reps / 1e3:.4f} ms per "
-          f"call, {100 * busy / wall_us:.1f}% of host wall time "
-          f"{wall_us / reps / 1e3:.4f} ms")
-    for t, key in rows[:8]:
-        print(f"  {t / reps / 1e3:.4f} ms  {100 * t / busy:5.1f}%  {key[:70]}")
+    busy = sum(t for t, _, _ in rows)
+    print(f"breakdown {name}: device busy {busy:.4f} ms per call, "
+          f"{100 * busy / wall_ms:.1f}% of host wall time {wall_ms:.4f} ms "
+          f"({reps} calls)")
+    for t, c, key in rows[:8]:
+        print(f"  {t:.4f} ms  {100 * t / busy:5.1f}%  {c} recorded  "
+              f"{key[:64]}")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -211,6 +243,8 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.ARCH}, "
           f"{len(_build.sources())} sources in parallel)")
+    # the process's first CUDA window of torch.profiler, spent on nothing
+    profiled(lambda: torch.zeros(1, device=dev), 1)
 
     # 3. conformance on the card
     m = pt.Matcher([b"AB", b"ABG", b"BEDE", b"ED"], device="cuda")
@@ -342,10 +376,8 @@ def main() -> int:
     print(f"CSR walk vs plain: big-ruleset {CORPUS // MB} MB, {bsurv.numel()} "
           f"survivors bit-equal ({k4_deep} deep matches)")
 
-    k3_err = 0
-    k3_inputs = {}
-    for nm, d, e in (("all_match", a_d, eng1), ("mixed", mix_d, engm)):
-        n = d.shape[0]
+    def k3_case(nm: str, d: torch.Tensor, n: int, e) -> int:
+        """K3 against block_walk_plain on d[:n]; keeps the inputs."""
         npd = npad_for(n)
         base3, _, counts3 = sieve.sieve(d, n, npd, e._sieve)
         esc = block_walk.escaped_blocks(counts3, npd)
@@ -355,12 +387,37 @@ def main() -> int:
         block_walk.block_walk_plain(d, n, counts3, mp3, e._walk)
         err = max_abs_err(mk3, mp3)
         assert err == 0, f"K3 != plain on {nm}"
-        k3_err = max(k3_err, err)
         deep = int((mk3 != base3).sum())
         k3_inputs[nm] = (d, n, counts3, base3, e, esc, deep)
-        print(f"K3 vs plain: {nm} {n // MB} MB, {esc} of {counts3.numel()} "
-              f"blocks escaped, bit-equal ({deep} deep matches)")
-    del mk3, mp3, out_p, bout_p, got, want
+        print(f"K3 vs plain: {nm} {n / MB:.2f} MB (data % 16 = "
+              f"{d.data_ptr() % 16}), {esc} of {counts3.numel()} blocks "
+              f"escaped, bit-equal ({deep} deep matches)")
+        return err
+
+    k3_inputs = {}
+    n_cut = 20 * block + 5 * block_walk.CHUNK + 3
+    long_pats = [b"z" * 1000 + b"y", b"zzzz", b"z" * 600 + b"y"]
+    long_eng = pt.Matcher(long_pats, device="cuda")._engine()
+    long_host = bytearray(b"z" * (2 * block + 500) + b"y" + bytes(3000))
+    long_host[40000:40001] = b"y"
+    long_d = torch.frombuffer(long_host, dtype=torch.uint8).to(dev)
+    k3_err = max(
+        k3_case("all_match", a_d, BENCH1, eng1),
+        k3_case("mixed", mix_d, MIXED, engm),
+        k3_case("random", rand_d, CORPUS, eng),
+        k3_case("all_match cut block", a_d, n_cut, eng1),
+        k3_case("all_match unaligned view", a_d[1:], SLICE + 5, eng1),
+        k3_case("mixed unaligned view", mix_d[3:], MIXED - 3, engm),
+        k3_case("long patterns", long_d, len(long_host), long_eng))
+    assert k3_inputs["all_match cut block"][5] == 21
+    assert k3_inputs["mixed unaligned view"][5] > 0
+    assert k3_inputs["random"][5] == 0 and k3_inputs["random"][6] == 0
+    assert k3_inputs["long patterns"][5] == 2
+    # G2 on each of its paths, forced, at E5's three shapes
+    for case in axis0_gather_probe.cases(dev, paths=("direct", "staged")):
+        assert harness.check(case) == 0
+        print(f"G2 vs plain: {case.name}: bit-equal ({case.kernel})")
+    del out_p, bout_p, got, want
     torch.cuda.empty_cache()
 
     # 6. the main path on every corpus, counted
@@ -482,9 +539,10 @@ def main() -> int:
     comp_plain = cuda_ms(lambda: compact.compact_plain(bits, counts, thresh),
                          reps=3, warmup=1)
     nonzero_ms = cuda_ms(lambda: torch.nonzero(flags_u8), batch=batch)
-    comp_dev = device_ms(lambda: compact.compact(bits, counts, thresh))
-    scan_ms = kernel_ms(comp_dev, "compact_scan_kernel")
-    expand_ms = kernel_ms(comp_dev, "compact_kernel")
+    comp_dev = device_ms(lambda: compact.compact(bits, counts, thresh),
+                         need=("compact_scan_kernel", "compact_kernel"))
+    scan_ms = kernel_ms(comp_dev, "compact_scan_kernel", comp_ms)
+    expand_ms = kernel_ms(comp_dev, "compact_kernel", comp_ms)
     live = int(((counts > 0) & (counts < thresh)).sum())
     scan_bound = bound_ms(4 * nblocks + 4 * (nblocks + 1))
     expand_bound = bound_ms(8 * nblocks + live * (block // 8)
@@ -518,24 +576,41 @@ def main() -> int:
     # bytes, and writes its deep match
     k2_bound = bound_ms(8 * surv.numel() + 4 * k2_deep)
     k4_bound = bound_ms(8 * bsurv.numel() + 4 * k4_deep)
-    d, n, counts3, base3, e, esc3, deep3 = k3_inputs["all_match"]
-    mk3 = base3.clone()
-    k3_ms = cuda_ms(lambda: block_walk.block_walk(d, n, counts3, mk3,
-                                                  e._walk), batch=batch)
-    mp3 = base3.clone()
-    k3_plain = cuda_ms(lambda: block_walk.block_walk_plain(
-        d, n, counts3, mp3, e._walk), reps=3, warmup=1)
-    assert torch.equal(mk3, mp3)
-    # the dense blocks' bytes read, their deep matches written
-    k3_bound = bound_ms(min(n, esc3 * block) + 4 * deep3)
-    del mk3, mp3, out_p, bout_p
+    # K3: the dense blocks' bytes and the counts read, the deep matches
+    # written; repeating it rewrites the same words
+    k3 = {}
+    for nm in ("all_match", "mixed", "random"):
+        d, n, counts3, base3, e, esc3, deep3 = k3_inputs[nm]
+        mk3 = base3.clone()
+        run3 = (lambda d=d, n=n, c=counts3, o=mk3, e=e:
+                block_walk.block_walk(d, n, c, o, e._walk))
+        ms3 = cuda_ms(run3, batch=batch)
+        prof3 = kernel_ms(device_ms(run3, need=("block_walk_kernel",)),
+                          "block_walk_kernel", ms3)
+        mp3 = base3.clone()
+        plain3 = cuda_ms(lambda: block_walk.block_walk_plain(
+            d, n, counts3, mp3, e._walk), reps=3, warmup=1)
+        assert torch.equal(mk3, mp3)
+        bound3 = bound_ms(min(n, esc3 * block) + 4 * deep3
+                          + 4 * counts3.numel())
+        nst, _, cap3, res3 = block_walk.launch_plan(
+            e._walk, base3.numel() // block_walk.CHUNK, dev)
+        tiles3 = len(block_walk.dense_tiles(n, counts3, block))
+        k3[nm] = (ms3, plain3, bound3)
+        print(f"time K3 block_walk_kernel {nm} {n // MB} MB ({esc3} blocks, "
+              f"{tiles3} tiles, {deep3} deep matches; {res3} of "
+              f"{e._walk.arena.numel()} arena words resident, "
+              f"{block_walk.fixed_smem_bytes(nst, cap3) + 4 * res3} B of "
+              f"shared memory): {ms3:.4f} ms batched, {prof3:.4f} ms profiler "
+              f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms)  "
+              f"[{name_limit}]")
+        del mk3, mp3
+    k3_ms, k3_plain, k3_bound = k3["all_match"]
+    del out_p, bout_p
     torch.cuda.empty_cache()
     print(f"time K2 walk_kernel {surv.numel()} DEFCON-like survivors: "
           f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {k2_bound:.4f} "
           f"ms)  [{name_limit}]")
-    print(f"time K3 block_walk_kernel all-match {BENCH1 // MB} MB ({esc3} "
-          f"blocks): {k3_ms:.4f} ms (plain {k3_plain:.3f} ms, bound "
-          f"{k3_bound:.4f} ms)  [{name_limit}]")
     print(f"time csr_walk_kernel {bsurv.numel()} big-ruleset survivors: "
           f"{k4_ms:.4f} ms (plain {k4_plain:.3f} ms, bound {k4_bound:.4f} "
           f"ms)  [{name_limit}]")
@@ -560,7 +635,8 @@ def main() -> int:
     micro = itertools.chain(
         lanegather_micro.cases(dev), gather_micro.cases(dev),
         dyngather_micro.cases(dev), align_micro.cases(dev),
-        axis0_gather_probe.cases(dev), lanegather2_micro.cases(dev),
+        axis0_gather_probe.cases(dev, paths=(None, "direct", "staged")),
+        lanegather2_micro.cases(dev),
         gather_micro.arena_cases(gather_micro.arenas_of(eng, engb)))
     torch.cuda.synchronize()
     for k in gathers.LAUNCHES:
@@ -580,6 +656,17 @@ def main() -> int:
           f"the reference cases' numpy expectations")
     assert all(v > 0 for v in g_launches.values()), g_launches
     timed = [harness.measure(c, name_limit) for c in checked]
+    # the launch-bound G2 cases: the card's own time of the kernel and of
+    # torch.gather's (profiler), beside the batched times above
+    for c in checked:
+        if c.kernel.startswith("tile_gather") and c.lookups <= 1 << 16:
+            ours = kernel_ms(device_ms(c.run, need=(c.kernel,)), c.kernel,
+                             next(t["ms"] for t in timed
+                                  if t["name"] == c.name))
+            lib = device_ms(c.library)
+            print(f"device time {c.name}: {c.kernel} {ours:.4f} ms, "
+                  f"torch.gather's {len(lib)} kernel(s) "
+                  f"{sum(lib.values()):.4f} ms  [{name_limit}]")
     del checked
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
@@ -605,6 +692,8 @@ def main() -> int:
     rep = {"word_gather_kernel": pick("word_gather_kernel", "snort_sieve",
                                       "G1 ldg"),
            "tile_gather_kernel": pick("tile_gather_kernel", "E1 A"),
+           "tile_gather_direct_kernel": pick("tile_gather_direct_kernel",
+                                             "E5 a"),
            "chain_gather_kernel": pick("chain_gather_kernel", "E3 rows=4096",
                                        "chain=4 smem"),
            "align_kernel": pick("align_kernel", "E4")}
@@ -617,6 +706,7 @@ def main() -> int:
                               "experiments/axis0_gather_probe.py:35",
         "chain_gather_kernel": "experiments/dyngather_micro.py:40",
         "align_kernel": "experiments/align_micro.py:63"}
+    replaces["tile_gather_direct_kernel"] = replaces["tile_gather_kernel"]
 
     def row(name, source, replaces_, err, ms_, plain_ms, bound, library=None):
         return {"name": name, "route": "cuda",
@@ -641,7 +731,7 @@ def main() -> int:
             compact_err, expand_ms, comp_plain, expand_bound, nonzero_ms),
         row("walk_kernel", "walk.cu", "pfac_tpu/backends/pallas_walk.py:360",
             k2_err, k2_ms, k2_plain, k2_bound),
-        row("block_walk_kernel", "walk.cu",
+        row("block_walk_kernel", "block_walk.cu",
             "pfac_tpu/backends/pallas_sieve.py:678", k3_err, k3_ms, k3_plain,
             k3_bound),
         row("csr_walk_kernel", "csr_walk.cu",

@@ -44,16 +44,17 @@ _SIGNATURES = {
     "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
-    # device, data, n, counts, nblocks, block, thresh, arena, desc, nsteps,
-    # out, stream
-    "pfac_block_walk": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _P, _P, _I,
-                        _P, _P],
+    # device, data, n, counts, nblocks, block, thresh, arena, words,
+    # resident, desc, nsteps, look, cap, out, stream
+    "pfac_block_walk": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P,
+                        _I, _I, _I, _P, _P],
     # device, data, n, pos, count, arena, desc, nsteps, out, stream
     "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
     # device, table, words, idx, n, placement, out, stream
     "pfac_word_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _P, _P],
-    # device, tile, rows, cols, idx, m, k, axis, out, stream
-    "pfac_tile_gather": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # device, tile, rows, cols, idx, m, k, axis, direct, out, stream
+    "pfac_tile_gather": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _I, _I, _P,
+                         _P],
     # device, table, words, idx, n, chain, placement, hashed, out, stream
     "pfac_chain_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     # device, pos, raw, groups, w_out, w_raw, out, stream

@@ -1,35 +1,105 @@
-"""Dense-block escape: kernel K3 and its plain torch version.
+"""Dense-block escape: kernel K3 and its plain torch versions.
 
-K3 (``block_walk_kernel`` in ``csrc/walk.cu``) replaces the Pallas
+K3 (``block_walk_kernel`` in ``csrc/block_walk.cu``) replaces the Pallas
 block-walk kernel ``pfac_tpu.backends.pallas_sieve.build_block_walk``. A
 block of ``block`` positions is dense when the sieve counted at least
 ``block // DENSE_ESCAPE_DIV`` survivors in it (``DENSE_ESCAPE_DIV = 4``, as
 the reference's ``pallas_sieve.DENSE_ESCAPE_DIV``). Every position of a
-dense block is walked to full depth with K2's walk and its matches of >= 4
-bytes written into the sieve's result in place. The compaction
+dense block is walked to full depth as K2 walks a survivor and its matches
+of >= 4 bytes written into the sieve's result in place. The compaction
 (``compact.py``) reads the same counts and threshold and leaves the block
 out, so K2 never sees its positions. The sieve already wrote the exact
 depth-1..3 match at every position, so the block's result is then
 complete, as the reference's K3 writes it.
 
-The kernel reads the counts on the device and returns at once for a block
-that is not dense: the escape needs no host round trip, and a corpus
-without dense blocks pays one near-empty launch. The reference batches 64
-blocks per launch to save XLA dispatch; one launch covers every block here.
+The kernel reads the counts on the device: a persistent grid numbers the
+dense blocks' tiles of ``CHUNK`` positions and each CTA takes its share, so
+the escape needs no host round trip and a corpus without dense blocks pays
+one pass of the grid over the counts. A tile is walked from shared memory:
+its ``CHUNK`` bytes and :func:`lookahead` more arrive by an asynchronous
+bulk copy, and the walk tables are resident there by depth, as far as
+:func:`resident_words` finds room; deeper tables are read through L1/L2.
+The reference batches 64 blocks per launch to save XLA dispatch; one launch
+covers every block here.
+
+:func:`block_walk_plain` walks the dense blocks' positions over the whole
+corpus; :func:`block_walk_tiles_plain` does what the kernel does, tile by
+tile, each from its own slice of ``CHUNK + lookahead`` bytes.
 """
 from __future__ import annotations
+
+import bisect
 
 import torch
 
 from .. import _build
-from .probe import Packed
+from .probe import DESC_WORDS, Packed
+from .sieve import SMEM_LIMIT
 from .walk import walk_plain
 
 #: K3 launches since the count was last reset (only where the kernel runs)
 LAUNCHES = 0
 
 DENSE_ESCAPE_DIV = 4        # as pfac_tpu.backends.pallas_sieve
+CHUNK = 8192                # positions per tile; block % CHUNK == 0
 _PLAIN_CHUNK = 1 << 22      # positions per walk_plain call
+_WARPS = 16                 # as csrc/block_walk.cu
+_HEADER, _TILE_PAD, _WARP_STAGE = 32, 32, 4 * 512
+
+
+def steps_of(tabs: Packed) -> int:
+    return (len(tabs.rows) - 2) // 3
+
+
+def lookahead(nsteps: int) -> int:
+    """Bytes past a tile's last position that its walks may read: the entry
+    key's 4 and 2 a step, rounded up to the bulk copy's 16."""
+    return -(-(4 + 2 * nsteps) // 16) * 16
+
+
+def tile_cap(ntiles: int, sms: int) -> int:
+    """Room for the tile numbers one CTA of the persistent grid (>= one CTA
+    per SM) may have to keep, a multiple of 4 words."""
+    per_cta = -(-ntiles // sms)
+    return max(4, -(-per_cta // 4) * 4)
+
+
+def fixed_smem_bytes(nsteps: int, cap: int) -> int:
+    """K3's dynamic shared memory without the resident tables
+    (csrc/block_walk.cu): barriers, two tile buffers, the warps' store
+    staging, the descriptor rows and the CTA's tile numbers."""
+    tile = CHUNK + lookahead(nsteps) + _TILE_PAD
+    return (_HEADER + 2 * tile + _WARPS * _WARP_STAGE
+            + 4 * DESC_WORDS * (2 + 3 * nsteps) + 4 * cap)
+
+
+def table_ends(tabs: Packed) -> list[int]:
+    """Arena offsets at which a whole table (one descriptor row's arrays)
+    ends, ascending. pack() lays the arena in row order: entry,
+    entry_final, then every step's main, odd, even."""
+    ends = tabs.derived.get("table_ends")
+    if ends is None:
+        ends = []
+        for _, lg_b, lg_r, disp_off, key_off, val_off, present, _ in tabs.rows:
+            if present:
+                ends.append(max(disp_off + (1 << lg_b) if disp_off >= 0 else 0,
+                                key_off + (1 << lg_r), val_off + (1 << lg_r)))
+        if ends != sorted(ends) or (ends and ends[-1] != tabs.arena.numel()):
+            raise ValueError("the walk arena is not laid out in row order")
+        tabs.derived["table_ends"] = ends
+    return ends
+
+
+def resident_words(tabs: Packed, budget: int) -> int:
+    """Words of the arena K3 keeps in shared memory: the longest prefix of
+    whole tables within `budget` bytes. The entry tables, which every
+    position probes, must fit."""
+    ends = table_ends(tabs)
+    entry = ends[sum(1 for r in tabs.rows[:2] if r[6]) - 1]   # rows 0 and 1
+    if 4 * entry > budget:
+        raise ValueError(f"the walk's entry tables ({4 * entry} bytes) do not "
+                         f"fit K3's shared memory ({budget} bytes left)")
+    return ends[bisect.bisect_right(ends, budget // 4) - 1]
 
 
 def _check(data, n, counts, match, tabs: Packed) -> int:
@@ -58,26 +128,47 @@ def block_walk(data: torch.Tensor, n: int, counts: torch.Tensor,
         return block_walk_plain(data, n, counts, match, tabs)
     if data.device.type != "cuda":
         raise ValueError(f"no block walk for device {data.device}")
-    if block % 8192:
-        raise ValueError("the block must be a multiple of 8192 positions")
+    if block % CHUNK:
+        raise ValueError(f"the block must be a multiple of {CHUNK} positions")
     global LAUNCHES
-    nsteps = (len(tabs.rows) - 2) // 3
-    lib = _build.load()
-    rc = lib.pfac_block_walk(
+    nsteps, look, cap, resident = launch_plan(tabs, match.shape[0] // CHUNK,
+                                              data.device)
+    rc = _build.load().pfac_block_walk(
         data.device.index or 0, data.data_ptr(), n, counts.data_ptr(),
         counts.shape[0], block, block // DENSE_ESCAPE_DIV,
-        tabs.arena.data_ptr(), tabs.desc.data_ptr(), nsteps,
-        match.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+        tabs.arena.data_ptr(), tabs.arena.numel(), resident,
+        tabs.desc.data_ptr(), nsteps, look, cap, match.data_ptr(),
+        torch.cuda.current_stream(data.device).cuda_stream)
     LAUNCHES += 1
     _build.check(rc, "block_walk_kernel")
     return None
+
+
+def launch_plan(tabs: Packed, ntiles: int,
+                device: torch.device) -> tuple[int, int, int, int]:
+    """(nsteps, lookahead, tile-number room, resident arena words) of a K3
+    launch over `ntiles` tiles on a CUDA device; kept with the tables."""
+    key = ("k3_plan", ntiles, device.index)
+    plan = tabs.derived.get(key)
+    if plan is None:
+        nsteps = steps_of(tabs)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cap = tile_cap(ntiles, sms)
+        plan = tabs.derived[key] = (
+            nsteps, lookahead(nsteps), cap,
+            resident_words(tabs, SMEM_LIMIT - fixed_smem_bytes(nsteps, cap)))
+    return plan
+
+
+def _dense(counts: torch.Tensor, block: int) -> torch.Tensor:
+    return torch.nonzero(counts >= block // DENSE_ESCAPE_DIV).reshape(-1)
 
 
 def block_walk_plain(data: torch.Tensor, n: int, counts: torch.Tensor,
                      match: torch.Tensor, tabs: Packed) -> None:
     """Plain torch version of K3, on the data's device."""
     block = match.shape[0] // counts.shape[0]
-    dense = torch.nonzero(counts >= block // DENSE_ESCAPE_DIV).reshape(-1)
+    dense = _dense(counts, block)
     if dense.numel() == 0:
         return None
     pos = (dense[:, None] * block
@@ -85,6 +176,33 @@ def block_walk_plain(data: torch.Tensor, n: int, counts: torch.Tensor,
     pos = pos[pos < n].to(torch.int32)
     for c0 in range(0, pos.shape[0], _PLAIN_CHUNK):
         walk_plain(data, n, pos[c0:c0 + _PLAIN_CHUNK], match, tabs)
+    return None
+
+
+def dense_tiles(n: int, counts: torch.Tensor, block: int) -> list[int]:
+    """First positions of the tiles K3 walks: every CHUNK of a dense block
+    that starts below n."""
+    return [c0 for b in _dense(counts, block).tolist()
+            for c0 in range(b * block, (b + 1) * block, CHUNK) if c0 < n]
+
+
+def block_walk_tiles_plain(data: torch.Tensor, n: int, counts: torch.Tensor,
+                           match: torch.Tensor, tabs: Packed) -> None:
+    """K3 as the kernel sees the corpus: each dense tile is walked alone,
+    from a slice of its CHUNK bytes and lookahead(nsteps) more, bytes at
+    and past n as 0, and its matches of >= 4 bytes land in `match`."""
+    block = match.shape[0] // counts.shape[0]
+    size = CHUNK + lookahead(steps_of(tabs))
+    for c0 in dense_tiles(n, counts, block):
+        have = min(size, n - c0)
+        tile = torch.zeros(size, dtype=torch.uint8, device=data.device)
+        tile[:have] = data[c0:c0 + have]
+        pos = torch.arange(min(CHUNK, have), dtype=torch.int32,
+                           device=data.device)
+        out = torch.zeros(CHUNK, dtype=torch.int32, device=data.device)
+        walk_plain(tile, have, pos, out, tabs)
+        deep = out > 0
+        match[c0:c0 + CHUNK][deep] = out[deep]
     return None
 
 

@@ -15,9 +15,11 @@ into K1's result in place:
   survivor, then the CSR walk (``csr_walk.py``) in one launch.
 
 The reference gates its escape on ``max_len + 4 <= HALO_ROWS * LANES``: its
-K3 stages a block and a fixed lookahead in VMEM. K3 here reads bytes
-straight from the corpus, bounded by n, so the escape is armed whenever the
-walk tables exist, whatever the pattern length.
+K3 stages a block and a fixed lookahead in VMEM. K3 here stages tiles whose
+lookahead follows the walk's depth, so the escape is armed whenever the
+walk tables exist: their 6 MB tier gate stops at ~770 steps (patterns of
+~1.5 KB), where the lookahead, the descriptor rows and the entry tables
+still fit a CTA's shared memory.
 
 The reference's round machinery (light/heavy rounds, ``HEAVY_CAP``,
 ``R_BUF_ROUNDS``, ``PER_IDX_ROUNDS``, the deferred scatter buffer) and the

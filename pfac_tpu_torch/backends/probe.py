@@ -77,6 +77,9 @@ class Packed:
     arena: torch.Tensor         # int32[words]
     desc: torch.Tensor          # int32[len(rows), DESC_WORDS]
     rows: list[tuple[int, ...]]
+    #: what a wrapper derives from the rows once and keeps (K3's table ends)
+    derived: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
 
 def pack(probes: list[FlatProbe | None], device,

@@ -1,0 +1,595 @@
+// Kernel K3, the dense-block walk: replaces
+// pfac_tpu/backends/pallas_sieve.py::build_block_walk (walk body
+// pallas_walk.py::emit_block_walk).
+//
+// A block of `block` positions is dense when the sieve counted at least
+// `thresh` survivors in it (counts[b], written by K1). Every position of a
+// dense block is walked to full depth as K2 walks a survivor (walk.cu has
+// the key conventions: BIG-endian entry key, two bytes a step over
+// depth-sliced exact tables, a hit at depth d needs n - p > d, the longest
+// hit wins) and its match of >= 4 bytes is written into K1's result in
+// place; out[p] is written only where there is one and never read. The
+// compaction (compact.cu) reads the same counts and threshold and skips the
+// block, so no survivor is walked twice.
+//
+// Bound: device memory, the dense blocks' bytes read once and their deep
+// matches written once (all-match: 1 byte in, 4 bytes out per position).
+// What stands in the way is the number of loads issued: a walk probes two
+// entry tables and up to three tables a step, each probe two or three
+// dependent words, and a byte fetched by a load of its own costs as much as
+// a word. Design:
+// * a persistent grid, as many CTAs as the SMs hold. Every CTA scans the
+//   per-block counts (a few KB), numbers the dense blocks' 8,192-position
+//   tiles and takes those whose number is its blockIdx modulo the grid: no
+//   host round trip, no counter to zero, and a corpus without a dense block
+//   costs one pass of the grid over the counts;
+// * the corpus tile (8,192 bytes and the walk's lookahead, 4 + 2 * nsteps
+//   rounded up to 16) arrives in shared memory by one asynchronous bulk
+//   copy (cp.async.bulk on an mbarrier), double-buffered: the next tile's
+//   copy runs while this tile is walked. The copy needs 16-byte-aligned
+//   addresses and sizes, so the source is aligned down and the tile carries
+//   the offset; a tile whose aligned range would leave [data, data + n)
+//   (the first of a misaligned view, the last ones before n) is copied by
+//   the threads instead, bytes at and past n as 0;
+// * a thread takes 16 consecutive positions, kBatch at a time: 4 words of
+//   shared memory give a batch's 11 bytes, its entry keys come from funnel
+//   shifts and a byte permute, and each step's two bytes per position from
+//   4 more words;
+// * the descriptor rows are staged once per CTA in shared memory;
+// * tables resident by depth: the arena is laid out in row order (entry,
+//   entry_final, then each step's main, odd, even), and its first
+//   `resident` words (the host picks the longest prefix of whole tables
+//   that fits, backends/block_walk.py) are staged in shared memory by bulk
+//   copy; a probe reads word i from there when i < resident, else through
+//   L1/L2 (__ldg);
+// * probes go kBatch positions at a time, stage by stage (all slots, then
+//   all keys and values), so a thread keeps kBatch independent loads in
+//   flight; a dead position's key carries the DEAD index, which no table
+//   holds, so it needs no branch. A dead position still costs its probes,
+//   so the batch steps on only while two or more of it are alive: the last
+//   one alive (a long pattern among short ones) walks on alone
+//   (walk_tail), and a ruleset without steps (every pattern 4 bytes) skips
+//   the entry-state probe, whose result nothing reads;
+// * one kernel for an arena that is resident whole (no test per table word)
+//   and one for a split arena;
+// * results are staged per warp in shared memory with K1's XOR swizzle and
+//   leave as 128-byte warp stores, each word predicated on match != 0;
+// * the grid size (an occupancy query) and the shared-memory attribute are
+//   cached on the host per device and shared-memory size.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <mutex>
+#include <type_traits>
+
+#include "probe.cuh"
+
+namespace {
+
+constexpr uint32_t kDead = 0xFFFFu;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 16;                      // positions per thread
+constexpr int kBatch = 8;                     // positions probed together
+constexpr int kChunk = kThreads * kPer;       // positions per tile: 8,192
+constexpr int kWarpPos = 32 * kPer;
+constexpr int kHeader = 32;                   // three mbarriers
+constexpr int kTilePad = 32;                  // alignment offset + over-read
+constexpr uint32_t kBulkMax = 1u << 15;       // bytes per bulk copy
+
+// Arena words: shared memory below `resident`, L1/L2 from there on.
+struct SplitTab {
+  const uint32_t* s;
+  const int32_t* __restrict__ g;
+  uint32_t resident;
+  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
+    return i < resident ? s[i] : static_cast<uint32_t>(__ldg(g + i));
+  }
+};
+
+// The whole arena in shared memory: no test, no global path.
+struct SmemTab {
+  const uint32_t* s;
+  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
+    return s[i];
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from src (16-byte aligned, global) to dst
+// (16-byte aligned, shared), completing on `bar`; one thread calls it after
+// mbar_expect(bar, bytes).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  for (uint32_t off = 0; off < bytes; off += kBulkMax) {
+    const uint32_t len = bytes - off < kBulkMax ? bytes - off : kBulkMax;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(static_cast<char*>(dst) + off)),
+        "l"(static_cast<const char*>(src) + off), "r"(len), "r"(b)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ pfac::Probe smem_probe(const int32_t* sdesc, int row) {
+  const int32_t* d = sdesc + row * pfac::kDescWords;
+  pfac::Probe p;
+  p.mul = static_cast<uint32_t>(d[0]);
+  p.lg_b = d[1];
+  p.lg_r = d[2];
+  p.disp_off = d[3];
+  p.key_off = d[4];
+  p.val_off = d[5];
+  p.present = d[6];
+  return p;
+}
+
+// W little-endian words of the tile's bytes from byte offset `off` on.
+template <int W>
+__device__ __forceinline__ void window(const uint32_t* tile32, int32_t off,
+                                       uint32_t (&v)[W]) {
+  const uint32_t* w = tile32 + (off >> 2);
+  const uint32_t sh = static_cast<uint32_t>(off & 3) * 8;
+  uint32_t lo = w[0];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const uint32_t hi = w[k + 1];
+    v[k] = __funnelshift_r(lo, hi, sh);
+    lo = hi;
+  }
+}
+
+// Exact probe of kBatch keys: every slot first, then every key and value.
+template <class Tab>
+__device__ __forceinline__ void probe_batch(const Tab& t,
+                                            const pfac::Probe& p,
+                                            const uint32_t (&key)[kBatch],
+                                            uint32_t (&val)[kBatch],
+                                            bool (&hit)[kBatch]) {
+  uint32_t sl[kBatch];
+  if (p.disp_off < 0) {           // uniform; probe_slot's own test folds
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) sl[j] = pfac::probe_slot(t, p, key[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) sl[j] = pfac::probe_slot(t, p, key[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    val[j] = t[p.val_off + sl[j]];
+    hit[j] = t[p.key_off + sl[j]] == key[j];
+  }
+}
+
+// One position's walk from step `st` on, as walk.cu's walk_position steps:
+// `state` its live state, `match` its longest match so far, `bytes` its
+// first byte in the tile, rd = n - position. -> the longest match. A step's
+// three probes are independent, so their slots are taken first: a step is
+// two dependent loads deep.
+template <class Tab>
+__device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
+                                           int32_t nsteps, int32_t st,
+                                           uint32_t state, uint32_t match,
+                                           const uint8_t* bytes, int32_t rd) {
+  for (; st < nsteps && state != kDead; ++st) {
+    const int32_t d = 4 + 2 * st;
+    const pfac::Probe main = smem_probe(sdesc, 2 + 3 * st);
+    const pfac::Probe odd = smem_probe(sdesc, 3 + 3 * st);
+    const pfac::Probe even = smem_probe(sdesc, 4 + 3 * st);
+    const uint32_t mkey = (state << 16) | (static_cast<uint32_t>(bytes[d]) << 8) |
+                          bytes[d + 1];
+    const uint32_t okey = mkey >> 8;              // state << 8 | byte d
+    uint32_t so = 0, sm = 0, se = 0;
+    if (odd.present) so = pfac::probe_slot(t, odd, okey);
+    if (main.present) sm = pfac::probe_slot(t, main, mkey);
+    if (even.present) se = pfac::probe_slot(t, even, mkey);
+    if (odd.present && rd > d && t[odd.key_off + so] == okey)
+      match = t[odd.val_off + so];
+    if (!main.present) break;
+    const bool hit = rd > d + 1 && t[main.key_off + sm] == mkey;
+    const uint32_t next = t[main.val_off + sm];
+    if (even.present && rd > d + 1 && t[even.key_off + se] == mkey)
+      match = t[even.val_off + se];
+    state = hit ? next : kDead;
+  }
+  return match;
+}
+
+// kBatch consecutive positions whose first byte is the tile's byte `off`;
+// rd = n - (first position) (may be <= 0). match[j]: ID of the longest
+// match of >= 4 bytes at position j, else 0. The steps go batched while at
+// least two of the positions are alive: a dead one still costs its probes
+// there. The last one alive (a long pattern among short ones) goes on
+// alone in walk_tail().
+template <class Tab>
+__device__ __forceinline__ void walk_batch(
+    const Tab& t, const pfac::Probe& entry, const pfac::Probe& entry_final,
+    const int32_t* sdesc, int32_t nsteps, const uint32_t* tile32, int32_t off,
+    int32_t rd, uint32_t (&match)[kBatch]) {
+  constexpr int kWin = kBatch / 4 + 1;    // words holding kBatch + 3 bytes
+  uint32_t v[kWin], key[kBatch], val[kBatch], state[kBatch];
+  bool hit[kBatch];
+  window<kWin>(tile32, off, v);
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int q = j >> 2, r = j & 3;
+    const uint32_t le = r == 0 ? v[q] : __funnelshift_r(v[q], v[q + 1], 8 * r);
+    key[j] = __byte_perm(le, 0, 0x0123);          // big-endian b0 b1 b2 b3
+  }
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    state[j] = kDead;
+    match[j] = 0;
+  }
+  if (nsteps > 0) {                 // without steps no one reads the state
+    probe_batch(t, entry, key, val, hit);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (hit[j] && rd - j > 3) state[j] = val[j];
+  }
+  if (entry_final.present) {
+    probe_batch(t, entry_final, key, val, hit);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (hit[j] && rd - j > 3) match[j] = val[j];
+  }
+  int32_t st = 0;
+  for (; st < nsteps; ++st) {
+    int alive_count = 0;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) alive_count += state[j] != kDead;
+    if (alive_count < 2) break;
+    const int32_t d = 4 + 2 * st;
+    const pfac::Probe main = smem_probe(sdesc, 2 + 3 * st);
+    const pfac::Probe odd = smem_probe(sdesc, 3 + 3 * st);
+    const pfac::Probe even = smem_probe(sdesc, 4 + 3 * st);
+    window<kWin>(tile32, off + d, v);             // bytes d .. d + kBatch
+    uint32_t c1[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      c1[j] = (v[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+    if (odd.present) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) key[j] = (state[j] << 8) | c1[j];
+      probe_batch(t, odd, key, val, hit);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (hit[j] && state[j] != kDead && rd - j > d) match[j] = val[j];
+    }
+    if (!main.present) {            // no deeper state exists
+      st = nsteps;
+      break;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const uint32_t c2 = (v[(j + 1) >> 2] >> (8 * ((j + 1) & 3))) & 0xFFu;
+      key[j] = (state[j] << 16) | (c1[j] << 8) | c2;
+    }
+    uint32_t next[kBatch];
+    bool alive[kBatch];
+    probe_batch(t, main, key, next, alive);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      alive[j] = alive[j] && state[j] != kDead && rd - j > d + 1;
+    if (even.present) {
+      probe_batch(t, even, key, val, hit);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (hit[j] && state[j] != kDead && rd - j > d + 1) match[j] = val[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) state[j] = alive[j] ? next[j] : kDead;
+  }
+  if (st >= nsteps) return;         // uniform where the walk has no steps
+  int last = -1;                    // the one position still alive, if any
+  uint32_t last_state = kDead, last_match = 0;
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    if (state[j] != kDead) {
+      last = j;
+      last_state = state[j];
+      last_match = match[j];
+    }
+  }
+  if (last >= 0) {
+    last_match = walk_tail(
+        t, sdesc, nsteps, st, last_state, last_match,
+        reinterpret_cast<const uint8_t*>(tile32) + off + last, rd - last);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (j == last) match[j] = last_match;
+  }
+}
+
+// Dynamic shared memory, in this order (backends/block_walk.py::
+// fixed_smem_bytes repeats it): [kHeader: mbarriers][2 tiles of kChunk +
+// look + kTilePad bytes][kWarps * 512 staging words][desc rows][cap tile
+// numbers][resident arena words]. kAllResident: `resident` covers the whole
+// arena, and every probe reads shared memory without a test.
+template <bool kAllResident>
+__global__ void __launch_bounds__(kThreads)
+block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
+                  const int32_t* __restrict__ counts, int32_t nblocks,
+                  int32_t block, int32_t thresh,
+                  const int32_t* __restrict__ arena, int32_t resident,
+                  const int32_t* __restrict__ desc, int32_t nsteps,
+                  int32_t look, int32_t cap, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int32_t s_warp[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t tile_bytes = kChunk + look + kTilePad;
+  const int32_t nrows = 2 + 3 * nsteps;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // tile 0, tile 1, tables
+  uint8_t* tiles = smem + kHeader;
+  uint32_t* stage_bufs = reinterpret_cast<uint32_t*>(tiles + 2 * tile_bytes);
+  int32_t* sdesc = reinterpret_cast<int32_t*>(stage_bufs + kWarps * kWarpPos);
+  int32_t* list = sdesc + nrows * pfac::kDescWords;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(list + cap);
+
+  // 1. number the dense blocks' tiles; keep those of this CTA. A dense
+  // block's tiles at and past n are numbered too and skipped when met.
+  const int32_t cpb = block / kChunk;
+  int32_t dense_before = 0;
+  for (int32_t b0 = 0; b0 < nblocks; b0 += kThreads) {
+    const int32_t b = b0 + tid;
+    const bool dense = b < nblocks && __ldg(counts + b) >= thresh;
+    const uint32_t bal = __ballot_sync(kFull, dense);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    int32_t rank = dense_before + __popc(bal & ((1u << lane) - 1u));
+    int32_t total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int32_t c = s_warp[w];
+      if (w < warp) rank += c;
+      total += c;
+    }
+    if (dense) {
+      for (int32_t c = 0; c < cpb; ++c) {
+        const int32_t tnum = rank * cpb + c;
+        if (tnum % static_cast<int32_t>(gridDim.x) ==
+            static_cast<int32_t>(blockIdx.x))
+          list[tnum / static_cast<int32_t>(gridDim.x)] = b * cpb + c;
+      }
+    }
+    dense_before += total;
+    __syncthreads();
+  }
+  const int32_t ntiles = dense_before * cpb;
+  const int32_t bid = static_cast<int32_t>(blockIdx.x);
+  const int32_t grid = static_cast<int32_t>(gridDim.x);
+  const int32_t mine = ntiles > bid ? (ntiles - bid + grid - 1) / grid : 0;
+  if (mine == 0) return;                        // uniform across the CTA
+
+  // 2. barriers, tables and descriptors
+  if (tid == 0) {
+    mbar_init(bars + 0);
+    mbar_init(bars + 1);
+    mbar_init(bars + 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int32_t bulk_words = resident & ~3;
+  if (tid == 0 && bulk_words > 0) {
+    mbar_expect(bars + 2, 4u * bulk_words);
+    bulk_copy(tab, arena, 4u * bulk_words, bars + 2);
+  }
+  for (int32_t i = bulk_words + tid; i < resident; i += kThreads)
+    tab[i] = static_cast<uint32_t>(__ldg(arena + i));
+  for (int32_t i = tid; i < nrows * pfac::kDescWords; i += kThreads)
+    sdesc[i] = __ldg(desc + i);
+
+  // the tile's bytes start at its byte `a`: the source is aligned down
+  const int32_t a = static_cast<int32_t>(reinterpret_cast<uintptr_t>(data) & 15);
+  const uint32_t bulk_len = static_cast<uint32_t>((a + kChunk + look + 15) & ~15);
+  // Bring tile number `tn` into buffer `buf`: by bulk copy where its
+  // aligned range lies inside [data, data + n), else by the threads (bytes
+  // at and past n as 0); nothing for a tile at or past n. -> whether the
+  // bulk copy was taken (uniform).
+  auto bulk_ok = [&](int32_t tn) -> bool {
+    const int64_t c0 = static_cast<int64_t>(tn) * kChunk;
+    return (c0 > 0 || a == 0) && c0 - a + bulk_len <= n;
+  };
+  auto fetch = [&](int32_t tn, int buf) {
+    const int64_t c0 = static_cast<int64_t>(tn) * kChunk;
+    if (c0 >= n) return;
+    uint8_t* dst = tiles + buf * tile_bytes;
+    if (bulk_ok(tn)) {
+      if (tid == 0) {
+        mbar_expect(bars + buf, bulk_len);
+        bulk_copy(dst, data + c0 - a, bulk_len, bars + buf);
+      }
+    } else {
+      for (int32_t i = tid; i < kChunk + look; i += kThreads)
+        dst[a + i] = c0 + i < n ? __ldg(data + c0 + i) : uint8_t{0};
+      // these writes come before a later bulk copy into this buffer
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+  };
+
+  fetch(list[0], 0);
+  __syncthreads();                              // sdesc, tab's last words
+  const pfac::Probe entry = smem_probe(sdesc, 0);
+  const pfac::Probe entry_final = smem_probe(sdesc, 1);
+  using Tab = std::conditional_t<kAllResident, SmemTab, SplitTab>;
+  Tab t;
+  if constexpr (kAllResident) t = Tab{tab};
+  else t = Tab{tab, arena, static_cast<uint32_t>(resident)};
+  if (bulk_words > 0) mbar_wait(bars + 2, 0);
+
+  // 3. the tiles
+  uint32_t* stage_buf = stage_bufs + warp * kWarpPos;
+  const int swz = (lane >> 1) & 15;
+  uint32_t parity = 0;                          // bit b: buffer b's phase
+  for (int32_t i = 0; i < mine; ++i) {
+    const int buf = i & 1;
+    // every thread is done with tile i - 1: its buffer may be refilled;
+    // the threads' own copy of tile i (made during tile i - 1) is visible
+    __syncthreads();
+    if (i + 1 < mine) fetch(list[i + 1], buf ^ 1);
+    const int32_t tn = list[i];
+    const int64_t c0 = static_cast<int64_t>(tn) * kChunk;
+    if (c0 >= n) continue;
+    if (bulk_ok(tn)) {
+      mbar_wait(bars + buf, (parity >> buf) & 1u);
+      parity ^= 1u << buf;
+    }
+    const uint32_t* tile32 =
+        reinterpret_cast<const uint32_t*>(tiles + buf * tile_bytes);
+    const int32_t lp = tid * kPer;              // first position in the tile
+    const int32_t rd = static_cast<int32_t>(n - c0) - lp;
+#pragma unroll
+    for (int j0 = 0; j0 < kPer; j0 += kBatch) {
+      uint32_t m[kBatch];
+      walk_batch(t, entry, entry_final, sdesc, nsteps, tile32, a + lp + j0,
+                 rd - j0, m);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)   // row `lane`, column (j0 + j) ^ swz
+        stage_buf[lane * kPer + ((j0 + j) ^ swz)] = m[j];
+    }
+    __syncwarp();
+    // word k * 32 + lane of the warp's 512 is row 2k + lane / 16, column
+    // lane % 16, stored at column (lane % 16) ^ k: 32 distinct banks
+    int32_t* dst = out + c0 + warp * kWarpPos;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const uint32_t mv =
+          stage_buf[(2 * k + (lane >> 4)) * kPer + ((lane & 15) ^ k)];
+      if (mv != 0) dst[k * 32 + lane] = static_cast<int32_t>(mv);
+    }
+  }
+}
+
+int64_t smem_bytes(int32_t nsteps, int32_t look, int32_t cap,
+                   int32_t resident) {
+  return kHeader + 2LL * (kChunk + look + kTilePad) + 4LL * kWarps * kWarpPos +
+         4LL * pfac::kDescWords * (2 + 3 * nsteps) + 4LL * cap + 4LL * resident;
+}
+
+// The persistent grid at `smem` bytes of shared memory: as many CTAs as the
+// SMs hold. The attribute and occupancy queries cost tens of microseconds
+// of host time, so the last few results are kept, keyed by device and
+// shared memory (one per ruleset and corpus size in use).
+cudaError_t persistent_grid(bool all, int device, int64_t smem, int64_t* grid) {
+  struct Entry { int device = -1; int64_t smem = -1, grid = 0; };
+  constexpr int kEntries = 8;
+  constexpr int kDevices = 64;
+  static Entry caches[2][kEntries];
+  static int64_t alloweds[2][kDevices];  // largest shared memory allowed
+  static int nexts[2];
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  Entry (&cache)[kEntries] = caches[all];
+  int64_t (&allowed)[kDevices] = alloweds[all];
+  int& next = nexts[all];
+  const void* fn = all ? (const void*)block_walk_kernel<true>
+                       : (const void*)block_walk_kernel<false>;
+  for (const Entry& e : cache) {
+    if (e.device == device && e.smem == smem) {
+      *grid = e.grid;
+      return cudaSuccess;
+    }
+  }
+  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
+  cudaError_t err;
+  if (allowed[device] < smem) {   // never lowered: cached grids still fit
+    err = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed[device] = smem;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, kThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  Entry& e = cache[next];
+  next = (next + 1) % kEntries;
+  e = Entry{device, smem, static_cast<int64_t>(per_sm) * sms};
+  *grid = e.grid;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// data: uint8[>= n], any alignment; counts: int32[nblocks] (K1's survivors
+// per block); out: int32[>= nblocks * block]; block % 8192 == 0; arena:
+// 16-byte aligned, its first `resident` words staged in shared memory;
+// `words` the arena's length (resident <= words); desc: 2 + 3 * nsteps
+// rows; look: the walk's lookahead in bytes, a
+// multiple of 16, >= 4 + 2 * nsteps; cap: room for a CTA's tile numbers, a
+// multiple of 4, cap * SMs >= nblocks * block / 8192. Else cudaErrorInvalidValue; tables
+// that do not fit shared memory fail the launch. Launches on `stream`;
+// returns the launch's cudaError_t.
+extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
+                               const void* counts, int32_t nblocks,
+                               int32_t block, int32_t thresh,
+                               const void* arena, int32_t words,
+                               int32_t resident, const void* desc,
+                               int32_t nsteps, int32_t look, int32_t cap,
+                               void* out, void* stream) {
+  if (resident > words || block <= 0 || block % kChunk != 0 || nblocks < 0 || n < 0 ||
+      nsteps < 0 || resident < 0 || cap < 4 || cap % 4 != 0 || look % 16 != 0 ||
+      look < 4 + 2 * nsteps || reinterpret_cast<uintptr_t>(arena) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nblocks == 0) return 0;
+  const int64_t smem = smem_bytes(nsteps, look, cap, resident);
+  int64_t grid;
+  const bool all = resident == words;
+  err = persistent_grid(all, device, smem, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = static_cast<int64_t>(nblocks) * (block / kChunk);
+  if (grid > tiles) grid = tiles;
+  if (cap * grid < tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* c = static_cast<const int32_t*>(counts);
+  const auto* a = static_cast<const int32_t*>(arena);
+  const auto* ds = static_cast<const int32_t*>(desc);
+  auto* o = static_cast<int32_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (all)
+    block_walk_kernel<true><<<g, kThreads, smem, st>>>(
+        d, n, c, nblocks, block, thresh, a, resident, ds, nsteps, look, cap, o);
+  else
+    block_walk_kernel<false><<<g, kThreads, smem, st>>>(
+        d, n, c, nblocks, block, thresh, a, resident, ds, nsteps, look, cap, o);
+  return static_cast<int>(cudaGetLastError());
+}

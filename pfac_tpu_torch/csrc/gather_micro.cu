@@ -9,6 +9,7 @@
 //
 //   G1 word_gather_kernel   out[i] = T[idx[i]]                 (E1-C/D, E2, E6)
 //   G2 tile_gather_kernel   take_along_axis on an int32 tile   (E1-A, E5, E6)
+//      tile_gather_direct_kernel   the same for small index sets
 //   G3 chain_gather_kernel  v = T[v], `chain` dependent loads  (E3)
 //   G4 align_kernel         the walker's window align           (E4)
 //
@@ -25,11 +26,23 @@
 // one: the walks' pattern). Indices and results are streamed with __ldcs /
 // __stcs (evict first), so they do not push the table out of L1 and L2.
 //
+// G2 has two paths, picked by the caller (experiments/gathers.py::
+// tile_path): `staged` as above, and `direct` for index sets smaller than
+// the words a CTA would stage (E5 a and c, E6's check): one thread per
+// lookup reads the tile through L1 (__ldg), with no shared memory and no
+// attribute to set, in a few small CTAs.
+//
+// A small case is bound by its launch, so the host side of one is kept
+// short: the wave's size (an occupancy query, and the shared-memory
+// attribute above 48 KB) is computed once per kernel, device and
+// shared-memory size and kept (wave()).
+//
 // Indices must lie in [0, words) (the caller's contract, as for the walks'
 // positions): no kernel checks them.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -166,6 +179,23 @@ tile_gather_kernel(const int32_t* __restrict__ tile, int32_t rows,
   }
 }
 
+// G2 without staging: one thread per lookup e = i * k + j.
+__global__ void __launch_bounds__(kThreads)
+tile_gather_direct_kernel(const int32_t* __restrict__ tile, int32_t rows,
+                          int32_t cols, const int32_t* __restrict__ idx,
+                          int32_t total, int32_t k, int32_t axis,
+                          int32_t* __restrict__ out) {
+  const int32_t e = static_cast<int32_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const uint32_t i = static_cast<uint32_t>(e) / static_cast<uint32_t>(k);
+  const uint32_t j = static_cast<uint32_t>(e) - i * static_cast<uint32_t>(k);
+  const int32_t v = __ldg(idx + e);
+  out[e] = axis == 0
+               ? __ldg(tile + static_cast<int64_t>(v) * cols + j)
+               : __ldg(tile + static_cast<int64_t>(i % static_cast<uint32_t>(rows)) *
+                                  cols + v);
+}
+
 // One thread per survivor s = (g, r, l) of the reference's (8, 128) groups:
 // out[((g*w_out + w)*8 + r)*128 + l] = raw[((g*w_raw + w + wv)*8 + r)*128 + l]
 // for w < w_out, wv = (pos[s] & 127) >> 2. A direct indexed load replaces
@@ -188,24 +218,50 @@ align_kernel(const int32_t* __restrict__ pos, const int32_t* __restrict__ raw,
 }
 
 // One wave of CTAs of `kernel` with `smem` dynamic bytes, at most `want`.
+// The occupancy query and the attribute call cost tens of microseconds of
+// host time, more than a small case's kernel, so the wave's full size is
+// kept per kernel, device and shared-memory size (the last kEntries).
+// The attribute is raised once per kernel and device, to the block's
+// opt-in limit: it only permits, a launch still asks for what it needs.
 template <typename Kernel>
 cudaError_t wave(Kernel kernel, int device, size_t smem, int64_t want,
                  unsigned* grid) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  struct Entry {
+    const void* fn = nullptr;
+    int device = -1;
+    size_t smem = 0;
+    int64_t full = 0;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int next;
+  static std::mutex mu;
+  const void* fn = (const void*)kernel;
+  int64_t full = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Entry& e : cache)
+      if (e.fn == fn && e.device == device && e.smem == smem) full = e.full;
+    if (full == 0) {
+      int sms = 0, per_sm = 0;
+      cudaError_t err =
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return err;
+      if (smem > 48 * 1024) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(sizeof(int32_t) * kSmemWords));
+        if (err != cudaSuccess) return err;
+      }
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, smem);
+      if (err != cudaSuccess) return err;
+      if (per_sm == 0) return cudaErrorInvalidConfiguration;
+      full = static_cast<int64_t>(per_sm) * sms;
+      cache[next] = Entry{fn, device, smem, full};
+      next = (next + 1) % kEntries;
+    }
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm == 0) return cudaErrorInvalidConfiguration;
-  const int64_t full = static_cast<int64_t>(per_sm) * sms;
   *grid = static_cast<unsigned>(want < 1 ? 1 : (want < full ? want : full));
   return cudaSuccess;
 }
@@ -280,21 +336,36 @@ extern "C" int pfac_word_gather(int device, const void* table, int32_t words,
   }
 }
 
-// G2. tile: int32[rows, cols]; idx, out: int32[m, k]. Axis 1: each idx in
-// [0, cols), rows * cols <= 58,112. Axis 0: k == cols, each idx in
-// [0, rows), rows * 32 <= 58,112. Else cudaErrorInvalidValue.
+// G2. tile: int32[rows, cols]; idx, out: int32[m, k], m * k < 2^31. Axis 1:
+// each idx in [0, cols). Axis 0: k == cols, each idx in [0, rows). direct
+// != 0 reads the tile through L1, one thread per lookup; else the tile
+// (axis 1; rows * cols <= 58,112) or a 32-column strip of it (axis 0;
+// rows * 32 <= 58,112) is staged in shared memory. Else
+// cudaErrorInvalidValue.
 extern "C" int pfac_tile_gather(int device, const void* tile, int32_t rows,
                                 int32_t cols, const void* idx, int32_t m,
-                                int32_t k, int32_t axis, void* out,
-                                void* stream) {
+                                int32_t k, int32_t axis, int32_t direct,
+                                void* out, void* stream) {
   const int64_t words = axis == 0 ? static_cast<int64_t>(rows) * kStrip
                                   : static_cast<int64_t>(rows) * cols;
+  const int64_t total = static_cast<int64_t>(m) * k;
   if (rows <= 0 || cols <= 0 || m < 0 || k <= 0 || (axis != 0 && axis != 1) ||
-      (axis == 0 && k != cols) || words > kSmemWords)
+      (axis == 0 && k != cols) || (!direct && words > kSmemWords) ||
+      total > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0) return 0;
+  const auto* t = static_cast<const int32_t*>(tile);
+  const auto* i = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<int32_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (direct) {
+    const unsigned ctas = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    tile_gather_direct_kernel<<<ctas, kThreads, 0, st>>>(
+        t, rows, cols, i, static_cast<int32_t>(total), k, axis, o);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = sizeof(int32_t) * words;
   const unsigned strips = static_cast<unsigned>((k + kStrip - 1) / kStrip);
   unsigned grid = 0;
@@ -303,11 +374,8 @@ extern "C" int pfac_tile_gather(int device, const void* tile, int32_t rows,
   err = wave(tile_gather_kernel, device, smem, row_ctas * strips, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned gx = grid / strips > 0 ? grid / strips : 1;
-  tile_gather_kernel<<<dim3(gx, strips), dim3(kStrip, kStripRows), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tile), rows, cols,
-      static_cast<const int32_t*>(idx), m, k, axis,
-      static_cast<int32_t*>(out));
+  tile_gather_kernel<<<dim3(gx, strips), dim3(kStrip, kStripRows), smem, st>>>(
+      t, rows, cols, i, m, k, axis, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,9 @@ layout is the same indexed load, so four kernels serve all nine sites:
   (``"ldg"``) or from L2 only (``"cg"``);
 * G2 :func:`tile_gather`: ``take_along_axis`` on an int32 tile, along
   axis 1 (``out[i, j] = tile[i % R, idx[i, j]]``) or axis 0
-  (``out[i, j] = tile[idx[i, j], j]``);
+  (``out[i, j] = tile[idx[i, j], j]``), the tile staged in shared memory
+  or, for fewer lookups than staged words, read directly
+  (:func:`tile_path`);
 * G3 :func:`chain_gather`: ``chain`` dependent loads per index;
 * G4 :func:`align`: the walker's window align, one thread per survivor.
 
@@ -32,8 +34,10 @@ from ..backends.probe import U32, mul32
 #: launches of each kernel since the counts were last reset (only where the
 #: kernel runs)
 LAUNCHES = {"word_gather_kernel": 0, "tile_gather_kernel": 0,
-            "chain_gather_kernel": 0, "align_kernel": 0}
+            "tile_gather_direct_kernel": 0, "chain_gather_kernel": 0,
+            "align_kernel": 0}
 PLACEMENTS = ("smem", "ldg", "cg")
+TILE_PATHS = ("direct", "staged")        # G2
 SMEM_WORDS = 232_448 // 4     # the most dynamic shared memory a CTA may use
 CHAIN_MUL = 0x9E3779B1        # G3's hashed step
 STRIP = 32                    # G2, axis 0: tile columns staged per CTA
@@ -41,15 +45,14 @@ ALIGN_SPAN = 32               # G4: window offsets 0..31
 GROUP = 8 * 128               # G4: survivors per (8, 128) group
 
 
-def _int32(**tensors: torch.Tensor) -> torch.device:
-    """Check contiguous int32 tensors on one device; -> the device."""
-    devs = {t.device for t in tensors.values()}
-    if len(devs) != 1:
+def _int32(a: torch.Tensor, b: torch.Tensor) -> torch.device:
+    """Check two contiguous int32 tensors on one device; -> the device."""
+    if a.device != b.device:
         raise ValueError("all tensors must be on one device")
-    for name, t in tensors.items():
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor")
-    return devs.pop()
+    if not (a.dtype == b.dtype == torch.int32 and a.is_contiguous()
+            and b.is_contiguous()):
+        raise ValueError("need contiguous int32 tensors")
+    return a.device
 
 
 def _fits(placement: str, words: int) -> None:
@@ -60,20 +63,25 @@ def _fits(placement: str, words: int) -> None:
                          f"(at most {SMEM_WORDS} words)")
 
 
+_ENTRY: dict[str, Callable] = {}     # bound C entry points, looked up once
+
+
 def _launch(kernel: str, entry: str, dev: torch.device, *args) -> None:
     if dev.type != "cuda":
         raise ValueError(f"no {kernel} for device {dev}")
-    lib = _build.load()
-    rc = getattr(lib, entry)(dev.index or 0, *args,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    fn = _ENTRY.get(entry)
+    if fn is None:
+        fn = _ENTRY[entry] = getattr(_build.load(), entry)
+    rc = fn(dev.index or 0, *args, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[kernel] += 1
-    _build.check(rc, kernel)
+    if rc:
+        _build.check(rc, kernel)
 
 
 def word_gather(table: torch.Tensor, idx: torch.Tensor,
                 placement: str = "ldg") -> torch.Tensor:
     """G1: ``table[idx]``, shaped like idx; each idx in [0, table.numel())."""
-    dev = _int32(table=table, idx=idx)
+    dev = _int32(table, idx)
     _fits(placement, table.numel())
     if dev.type == "cpu":
         return word_gather_plain(table, idx)
@@ -90,35 +98,57 @@ def word_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
 
-def _tile_check(tile: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
+def tile_path(rows: int, cols: int, m: int, k: int, axis: int) -> str:
+    """Which G2 kernel serves (m, k) lookups into a (rows, cols) tile:
+    ``"direct"`` (each lookup reads the tile through L1) where the lookups
+    are no more than the words one CTA would stage, the whole tile along
+    axis 1 or a 32-column strip along axis 0; else ``"staged"``."""
+    staged = rows * (STRIP if axis == 0 else cols)
+    return "direct" if m * k <= staged else "staged"
+
+
+def _tile_check(tile: torch.Tensor, idx: torch.Tensor, axis: int,
+                path: str | None) -> str:
+    """Check G2's shapes; -> the path (tile_path's where `path` is None)."""
     if tile.dim() != 2 or idx.dim() != 2 or axis not in (0, 1):
         raise ValueError("need a 2-D tile, 2-D indices and axis 0 or 1")
     rows, cols = tile.shape
-    if axis == 0 and idx.shape[1] != cols:
+    m, k = idx.shape
+    if axis == 0 and k != cols:
         raise ValueError("axis 0 needs as many index columns as the tile has")
-    if axis == 1 and idx.shape[0] % rows:
+    if axis == 1 and m % rows:
         raise ValueError("axis 1 needs a multiple of the tile's rows")
+    if m * k >= 1 << 31:
+        raise ValueError("need fewer than 2^31 lookups")
+    if path is None:
+        path = tile_path(rows, cols, m, k, axis)
+    elif path not in TILE_PATHS:
+        raise ValueError(f"path must be one of {TILE_PATHS}")
     staged = rows * (STRIP if axis == 0 else cols)
-    if staged > SMEM_WORDS:
+    if path == "staged" and staged > SMEM_WORDS:
         raise ValueError(f"{staged} staged words do not fit in shared memory "
                          f"(at most {SMEM_WORDS})")
+    return path
 
 
-def tile_gather(tile: torch.Tensor, idx: torch.Tensor,
-                axis: int) -> torch.Tensor:
+def tile_gather(tile: torch.Tensor, idx: torch.Tensor, axis: int,
+                path: str | None = None) -> torch.Tensor:
     """G2: ``take_along_axis(tile, idx, axis)``, the tile's rows repeated
     down the indices along axis 1 (``out[i, j] = tile[i % R, idx[i, j]]``).
-    The staged part (the whole tile, or R x 32 words along axis 0) must fit
-    in shared memory."""
-    dev = _int32(tile=tile, idx=idx)
-    _tile_check(tile, idx, axis)
+    `path` forces ``"direct"`` or ``"staged"`` (:func:`tile_path` when
+    None); the staged part (the whole tile, or R x 32 words along axis 0)
+    must fit in shared memory."""
+    dev = _int32(tile, idx)
+    path = _tile_check(tile, idx, axis, path)
     if dev.type == "cpu":
         return tile_gather_plain(tile, idx, axis)
     out = torch.empty_like(idx)
     if idx.numel():
-        _launch("tile_gather_kernel", "pfac_tile_gather", dev,
-                tile.data_ptr(), tile.shape[0], tile.shape[1], idx.data_ptr(),
-                idx.shape[0], idx.shape[1], axis, out.data_ptr())
+        direct = path == "direct"
+        kernel = "tile_gather_direct_kernel" if direct else "tile_gather_kernel"
+        _launch(kernel, "pfac_tile_gather", dev, tile.data_ptr(), tile.shape[0],
+                tile.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
+                axis, int(direct), out.data_ptr())
     return out
 
 
@@ -139,7 +169,7 @@ def chain_gather(table: torch.Tensor, idx: torch.Tensor, chain: int,
     is ``v = table[v]`` (every word an index), or, hashed, a multiply-shift
     hash of the word and v reduced to [0, W), as a walk hashes its state
     into its next probe (for tables whose words are not indices)."""
-    dev = _int32(table=table, idx=idx)
+    dev = _int32(table, idx)
     _fits(placement, table.numel())
     if chain < 1:
         raise ValueError("chain must be >= 1")
@@ -180,7 +210,7 @@ def align(pos: torch.Tensor, raw: torch.Tensor, w_out: int) -> torch.Tensor:
     """G4: the reference's window align (``experiments/align_micro.py``):
     ``out[g*w_out*8 + w*8 + r, l] = raw[(g*w_raw + w + wv)*8 + r, l]`` with
     ``wv = (pos[g*8 + r, l] & 127) >> 2``; out is (G*w_out*8, 128)."""
-    dev = _int32(pos=pos, raw=raw)
+    dev = _int32(pos, raw)
     w_raw = _align_check(pos, raw, w_out)
     if dev.type == "cpu":
         return align_plain(pos, raw, w_out)

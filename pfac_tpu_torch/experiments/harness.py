@@ -75,10 +75,16 @@ def word_cases(label: str, table: torch.Tensor, idx: torch.Tensor,
 
 
 def tile_case(name: str, tile: torch.Tensor, idx: torch.Tensor, axis: int,
-              expect: np.ndarray) -> Case:
-    """G2 on one tile along `axis`, with torch.gather as its yardstick."""
-    return Case(name, "tile_gather_kernel", idx.numel(),
-                lambda: gathers.tile_gather(tile, idx, axis),
+              expect: np.ndarray, path: str | None = None) -> Case:
+    """G2 on one tile along `axis`, with torch.gather as its yardstick; on
+    the path the wrapper's rule picks, or on `path`, named in the case."""
+    rule = gathers.tile_path(*tile.shape, *idx.shape, axis)
+    kernel = ("tile_gather_direct_kernel" if (path or rule) == "direct"
+              else "tile_gather_kernel")
+    if path is not None:
+        name = f"{name} [{path} forced, rule: {rule}]"
+    return Case(name, kernel, idx.numel(),
+                lambda: gathers.tile_gather(tile, idx, axis, path),
                 lambda: gathers.tile_gather_plain(tile, idx, axis), expect,
                 8 * idx.numel() + 4 * tile.numel(),
                 gathers.tile_gather_library(tile, idx, axis))

@@ -11,10 +11,14 @@ checkout's ``rulesets.py``, loaded by path, so every tree sees the same
 bytes), and prints per corpus one JSON line: the CUDA-event median of a warm
 ``Matcher(device="cuda").match_device`` call (10 calls after 2 warm-up
 calls), GB/s, a fingerprint of the result, the torch.profiler device time
-per kernel over 5 calls, and the card's clocks, power and temperature
-right after (nvidia-smi). It uses only the API every slice of the port
-has (``Matcher``, ``match_device``, ``_engine().tile_rows``). Without CUDA
-it exits 1.
+of a launch of each kernel (median over 5 calls), and the card's clocks,
+power and temperature right after (nvidia-smi); on the walk-table tier
+also K3 alone on the corpus's sieve counts (``k3_batched_ms``: the
+CUDA-event median over batches of 10 ``block_walk`` calls, so the card's
+time and not the wrapper's). It uses only the API every slice of the port
+since the second has (``Matcher``, ``match_device``,
+``_engine().tile_rows``, ``sieve.sieve``, ``block_walk.block_walk``).
+Without CUDA it exits 1.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ def _rulesets():
     return mod
 
 
-def _ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def _ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
     import numpy as np
     import torch
 
@@ -49,29 +53,57 @@ def _ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return float(np.median(times))
 
 
+def _k3_batched(mt, d) -> float | None:
+    """K3 alone on d's sieve counts, batches of 10 calls; None off the
+    walk-table tier."""
+    from pfac_tpu_torch.backends import block_walk, sieve
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+
+    eng = mt._engine()
+    if eng._walk is None:
+        return None
+    n = d.shape[0]
+    match, _, counts = sieve.sieve(d, n, npad_for(n), eng._sieve)
+    return _ms(lambda: block_walk.block_walk(d, n, counts, match, eng._walk),
+               batch=10)
+
+
 def _kernels(fn, reps: int = 5) -> dict[str, float]:
+    """torch.profiler device ms of a launch of each kernel of fn: the
+    median over the events it recorded with a duration. Its sums are not
+    to be divided by the calls made: it may record fewer launches than
+    were made, or more events than launches, and now and then none of a
+    window, which is then repeated, at most four times."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: round(e.self_device_time_total / reps / 1e3, 4)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans: dict[str, list[float]] = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                spans.setdefault(e.key[:60], []).append(
+                    e.self_device_time_total)
+        if spans:
+            break
+    return {k: round(float(np.median(v)) / 1e3, 4) for k, v in spans.items()}
 
 
 def _clocks() -> str:
@@ -128,6 +160,7 @@ def worker(tree: str) -> int:
         print(json.dumps({"tree": tree, "corpus": name, "ms": ms,
                           "GB/s": host.shape[0] / ms / 1e6,
                           "fingerprint": fingerprint, "device_ms": kernels,
+                          "k3_batched_ms": _k3_batched(mt, d),
                           "clocks": _clocks()}), flush=True)
         del d, res, ids, pos
         torch.cuda.empty_cache()

@@ -17,7 +17,7 @@ from pfac_tpu_torch.backends.sieve_matcher import npad_for
 from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
                                         dyngather_micro, gather_micro,
                                         gathers, harness, lanegather2_micro,
-                                        lanegather_micro)
+                                        lanegather_micro, rulesets)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,31 +114,122 @@ def _dense_corpus(n: int) -> np.ndarray:
     return data
 
 
-@pytest.mark.parametrize("n", [65536, 200_000, 3 * 65536 + 777])
-def test_block_walk_matches_plain(dev, n):
+@pytest.mark.parametrize("block", [65536, 8192])
+@pytest.mark.parametrize("n", [65536, 200_000, 3 * 65536 + 777,
+                               3 * 65536 + 3 * 8192 + 3])
+def test_block_walk_matches_plain(dev, n, block):
     pats = [b"aaaa", b"aaaab", b"a" * 40, b"ab", b"a", b"aaab" * 5]
-    m = pt.Matcher(pats, device=dev)
+    m = pt.Matcher(pats, device=dev, tile=block)
     eng = m._engine()
+    assert eng.tile_rows * 128 == block
     host = _dense_corpus(n)
     data = torch.from_numpy(host).to(dev)
-    npad = npad_for(n)
-    match, bits, counts = sieve.sieve(data, n, npad, eng._sieve)
+    npad = npad_for(n, eng.tile_rows)
+    match, bits, counts = sieve.sieve(data, n, npad, eng._sieve, block)
     assert block_walk.escaped_blocks(counts, npad) >= 1
+    mk, mt = match.clone(), match.clone()
+    block_walk.block_walk(data, n, counts, mk, eng._walk)
+    block_walk.block_walk_tiles_plain(data, n, counts, mt, eng._walk)
+    block_walk.block_walk_plain(data, n, counts, match, eng._walk)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, match) and torch.equal(mt, match)
+    thresh = block // block_walk.DENSE_ESCAPE_DIV
+    assert torch.equal(compact.compact(bits, counts, thresh),
+                       compact.compact_plain(bits, counts, thresh))
+    res = m.match_device(data)
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
+                                         block=block, plain=True))
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
+                                         block=block, escape=False))
+    assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
+        m.automaton, host).tolist()
+
+
+def _k3_equal(data, n, eng, block=sieve.BLOCK):
+    """K3 on the card against its plain version; -> (blocks escaped, K3's
+    result)."""
+    npad = npad_for(n, block // 128)
+    match, _, counts = sieve.sieve(data, n, npad, eng._sieve, block)
     mk = match.clone()
     block_walk.block_walk(data, n, counts, mk, eng._walk)
     block_walk.block_walk_plain(data, n, counts, match, eng._walk)
     torch.cuda.synchronize()
     assert torch.equal(mk, match)
-    thresh = sieve.BLOCK // block_walk.DENSE_ESCAPE_DIV
-    assert torch.equal(compact.compact(bits, counts, thresh),
-                       compact.compact_plain(bits, counts, thresh))
+    return block_walk.escaped_blocks(counts, npad), mk
+
+
+def test_block_walk_tables_beyond_resident(dev):
+    # the Snort-scale walk arena does not fit beside the tile buffers: deep
+    # steps are read through L1/L2, shallow ones from shared memory
+    pats = rulesets.snort_like_patterns() + [b"zzzz", b"zzzzzzzz"]
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    nsteps = block_walk.steps_of(eng._walk)
+    budget = sieve.SMEM_LIMIT - block_walk.fixed_smem_bytes(nsteps, 4)
+    assert 0 < block_walk.resident_words(eng._walk, budget) \
+        < eng._walk.arena.numel()
+    n = (4 << 20) + 12345
+    host = rulesets.mixed_density(np.random.default_rng(5), pats, n,
+                                  sieve.BLOCK)
+    # deep matches inside a dense block: long patterns planted among the z
+    deep = [p for p in pats if len(p) > 60][:20]
+    for i, p in enumerate(deep):
+        off = sieve.BLOCK + 1000 + 400 * i
+        host[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    data = torch.from_numpy(host).to(dev)
+    esc, _ = _k3_equal(data, n, eng)
+    assert esc >= 4
     res = m.match_device(data)
-    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
-                                         plain=True))
-    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
-                                         escape=False))
     assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
         m.automaton, host).tolist()
+
+
+def test_block_walk_no_dense_block(dev):
+    pats, rng = _ruleset(5)
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    n = 1 << 20
+    data = torch.from_numpy(_corpus(rng, pats, n)).to(dev)
+    match, _, counts = sieve.sieve(data, n, npad_for(n), eng._sieve)
+    assert block_walk.escaped_blocks(counts, npad_for(n)) == 0
+    before = match.clone()
+    block_walk.LAUNCHES = 0
+    block_walk.block_walk(data, n, counts, match, eng._walk)
+    torch.cuda.synchronize()
+    assert block_walk.LAUNCHES == 1 and torch.equal(match, before)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4, 13, 16])
+def test_block_walk_unaligned_view(dev, offset):
+    # the bulk copy's source is aligned down; the first tile of a
+    # misaligned view and the tiles next to n are copied by the threads
+    pats = [b"aaaa", b"aaaab", b"a" * 40, b"ab", b"a", b"aaab" * 5]
+    eng = pt.Matcher(pats, device=dev)._engine()
+    n = 3 * 65536 + 777
+    data = torch.from_numpy(_dense_corpus(n + 64)).to(dev)[offset:]
+    assert data.data_ptr() % 16 == offset % 16
+    esc, _ = _k3_equal(data, n, eng)
+    assert esc >= 1
+
+
+def test_block_walk_long_patterns(dev):
+    # matches of ~1 KB that run hundreds of bytes into the next tile and the
+    # next block: the lookahead follows the walk's depth
+    pats = [b"z" * 1000 + b"y", b"zzzz", b"z" * 600 + b"y"]
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    assert block_walk.lookahead(block_walk.steps_of(eng._walk)) >= 1001
+    d = bytearray(b"z" * (sieve.BLOCK + 500) + b"y" + bytes(3000))
+    d[40000:40001] = b"y"
+    host = np.frombuffer(bytes(d), np.uint8)
+    data = torch.from_numpy(host.copy()).to(dev)
+    esc, got = _k3_equal(data, len(d), eng)
+    assert esc == 1
+    got = got.cpu().numpy()
+    assert got[39000] == 1 and got[39400] == 3 and got[39001] == 2
+    assert got[sieve.BLOCK - 500] == 1 and got[sieve.BLOCK - 100] == 3
+    assert m.match_device(data).cpu().numpy()[:len(d)].tolist() == \
+        golden.match_edges_batch(m.automaton, host).tolist()
 
 
 def _csr_ruleset():
@@ -302,7 +393,10 @@ def test_chain_gather_on_card(dev, placement, chain, hashed, w):
 @pytest.mark.parametrize("rows,cols,m,k,axis", [
     (8, 128, 8, 128, 1), (8, 128, 131072, 128, 1), (8, 100, 24, 37, 1),
     (512, 128, 8, 128, 0), (512, 128, 512, 128, 0), (32, 128, 8, 128, 0),
-    (1816, 40, 3001, 40, 0)])
+    (1816, 40, 3001, 40, 0),
+    # the rule's edge, the most lookups of the direct path and one row more
+    (8, 128, 16, 128, 1), (32, 128, 9, 128, 0), (8, 100, 8, 100, 1),
+    (8, 100, 16, 100, 1), (50, 40, 40, 40, 0), (50, 40, 41, 40, 0)])
 def test_tile_gather_on_card(dev, rows, cols, m, k, axis):
     rng = np.random.default_rng(rows + m)
     tile = torch.from_numpy(rng.integers(0, 1 << 30, size=(rows, cols))
@@ -310,8 +404,15 @@ def test_tile_gather_on_card(dev, rows, cols, m, k, axis):
     hi = rows if axis == 0 else cols
     idx = torch.from_numpy(rng.integers(0, hi, size=(m, k)).astype(np.int32)
                            ).to(dev)
-    assert torch.equal(gathers.tile_gather(tile, idx, axis),
-                       gathers.tile_gather_plain(tile, idx, axis))
+    want = gathers.tile_gather_plain(tile, idx, axis)
+    rule = gathers.tile_path(rows, cols, m, k, axis)
+    for path, kernel in ((None, None), ("direct", "tile_gather_direct_kernel"),
+                         ("staged", "tile_gather_kernel")):
+        kernel = kernel or ("tile_gather_direct_kernel" if rule == "direct"
+                            else "tile_gather_kernel")
+        gathers.LAUNCHES[kernel] = 0
+        assert torch.equal(gathers.tile_gather(tile, idx, axis, path), want)
+        assert gathers.LAUNCHES[kernel] == 1
 
 
 @pytest.mark.parametrize("groups,w_out,w_raw", [(1, 26, 64), (64, 26, 64),

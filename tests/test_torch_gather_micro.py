@@ -208,13 +208,19 @@ def test_smem_refuses_oversized_tables():
         with pytest.raises(ValueError, match="58112 words"):
             call()
     assert gathers.word_gather(over, idx, "ldg").tolist() == [0] * 4
-    # G2 stages the tile (axis 1) or its 32-column strips (axis 0)
+    # G2's staged path holds the tile (axis 1) or its 32-column strips
+    # (axis 0); few lookups take the direct path, which stages nothing
+    wide = torch.zeros(8, 7265, dtype=torch.int32)
+    tall = torch.zeros(1817, 4, dtype=torch.int32)
+    few = torch.zeros(8, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="shared memory"):
-        gathers.tile_gather(torch.zeros(8, 7265, dtype=torch.int32),
-                            torch.zeros(8, 4, dtype=torch.int32), 1)
+        gathers.tile_gather(wide, torch.zeros(800, 128, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="shared memory"):
-        gathers.tile_gather(torch.zeros(1817, 4, dtype=torch.int32),
-                            torch.zeros(8, 4, dtype=torch.int32), 0)
+        gathers.tile_gather(tall, torch.zeros(14540, 4, dtype=torch.int32), 0)
+    for tile, axis in ((wide, 1), (tall, 0)):
+        with pytest.raises(ValueError, match="shared memory"):
+            gathers.tile_gather(tile, few, axis, path="staged")
+        assert gathers.tile_gather(tile, few, axis).shape == few.shape
 
 
 def test_wrappers_refuse_bad_input():
