@@ -27,28 +27,38 @@ Phases, each on lines of its own:
    memory on a 16 MB random slice; the 100K arena across a cluster and
    through L1/L2 on a 16 MB slice of its corpus), the compaction on the
    DEFCON-like, big-ruleset and mixed corpora, K2 on the DEFCON-like
-   survivors, the CSR walk on the big corpus's survivors, K3 on the
-   all-match and mixed corpora;
+   survivors and the CSR walk on the big corpus's survivors (each with the
+   compaction's buffer and device count, a buffer longer than its count, a
+   count of 0 and an unaligned data view), K3 on the all-match and mixed
+   corpora and five more cases;
 6. the main path on every corpus, launch counts reset just before it, under
    torch.profiler: no ``aten::nonzero`` ran; K1 and both compaction kernels
-   launched on every corpus; each result equal in full to the port's plain
-   pipeline on the card, and to the port's numpy golden oracle
+   launched on every corpus, the tier's walker and K3 once a call; then the
+   same calls under ``torch.cuda.set_sync_debug_mode("error")``, where any
+   host synchronisation raises; each result equal in full to the port's
+   plain pipeline on the card, and to the port's numpy golden oracle
    (golden.match_edges_batch) on >= 16 MB of each corpus (>= 4 MB of the
-   big-ruleset corpus, where the oracle is slow); the escape taken on the
-   all-match and mixed corpora;
+   big-ruleset and F1 corpora); the escape taken on the all-match, mixed and
+   F1 corpora. The seventh corpus, f1_entry_tables, is ROADMAP.md's F1: a
+   ruleset whose entry tables outgrow the walk kernels' shared memory, so
+   they read every table through L1/L2;
 7. every kernel of the path launched;
 8. CUDA-event times (median after warm-up; a kernel over batches of 10
    calls, match_device one call at a time) of each kernel, its plain
    version, its library yardstick where one PyTorch call computes the same
    function (``torch.nonzero`` over uint8 flags for the compaction), and
    its bound; the compaction's two kernels by torch.profiler; the 100K
-   arena's two placements in turns; K3 on the all-match, mixed and random
-   corpora (batched and by torch.profiler, with its bound, the arena words
-   resident in shared memory and the tiles walked); match_device end to end
-   on every corpus and the all-match corpus with the escape disarmed;
-   torch.profiler breakdowns (a kernel's profiler time is the median over
-   the launches the profiler recorded; it may record fewer than were
-   made); the card's clocks before and after;
+   arena's two placements in turns; K2 on the DEFCON-like, random and
+   mixed survivors and the CSR walk on the big corpus's (batched and by
+   torch.profiler, with the grid and the arena bytes resident in shared
+   memory, and on the one survivor whose match is longest alone: the
+   chain floor), K2 with less of its arena resident; K3 on the all-match, mixed and random corpora (batched and by
+   torch.profiler, with its bound, the arena words resident in shared
+   memory and the tiles walked); match_device end to end on every corpus
+   with the device's busy share of it, and the all-match corpus with the
+   escape disarmed; torch.profiler breakdowns (a kernel's profiler time is
+   the median over the launches the profiler recorded; it may record fewer
+   than were made); the card's clocks before and after;
 9. the table-probe micro-benchmarks (``pfac_tpu_torch.experiments``, the
    counterparts of the reference's E1-E6) at full size, and G1/G3 over the
    four arenas built above, launch counts reset just before them: every
@@ -82,6 +92,7 @@ MB = 1 << 20
 CORPUS = 128 * MB
 BENCH1 = 100 * MB          # Benchmark I corpora
 MIXED = 16 * MB
+F1_BYTES = 4 * MB          # the F1 corpus
 SLICE = 16 * MB
 BIG_SLICE = 4 * MB         # golden slice of the big-ruleset corpus
 GOLDEN_SECONDS = 20.0      # per corpus: widen the golden check while time allows
@@ -155,24 +166,6 @@ def kernel_ms(times: dict[str, float], kernel: str,
               f"CUDA-event time {wrapper_ms:.4f} ms stands in")
         return wrapper_ms
     return hits[0]
-
-
-def breakdown(name: str, fn, reps: int = 5) -> None:
-    """Device time by kernel over `reps` calls (torch.profiler), and the
-    device's busy share of the host wall time of the window; a call's busy
-    time is the sum of its kernels' times (no kernel runs twice in a
-    call)."""
-    rows, wall_ms = profiled(fn, reps)
-    if not rows:
-        print(f"breakdown {name}: the profiler saw no device time")
-        return
-    busy = sum(t for t, _, _ in rows)
-    print(f"breakdown {name}: device busy {busy:.4f} ms per call, "
-          f"{100 * busy / wall_ms:.1f}% of host wall time {wall_ms:.4f} ms "
-          f"({reps} calls)")
-    for t, c, key in rows[:8]:
-        print(f"  {t:.4f} ms  {100 * t / busy:5.1f}%  {c} recorded  "
-              f"{key[:64]}")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -348,33 +341,55 @@ def main() -> int:
     for nm, bt, cn, th in (("DEFCON-like", bits, counts, thresh),
                            ("big-ruleset", bbits, bcounts, block + 1),
                            ("mixed", mbits, mcounts, thresh)):
-        pk = compact.compact(bt, cn, th)
+        pk, pc = compact.compact(bt, cn, th)
         pp = compact.compact_plain(bt, cn, th)
-        compact_err = max(compact_err, max_abs_err(pk, pp))
+        compact_err = max(compact_err, max_abs_err(pk[:int(pc)], pp))
         assert compact_err == 0, f"compaction != plain on {nm}"
-        print(f"compaction vs plain: {nm}, {pk.numel()} positions, threshold "
+        print(f"compaction vs plain: {nm}, {int(pc)} positions in a buffer "
+              f"of {pk.numel()} ({4 * pk.numel() / 1e6:.1f} MB), threshold "
               f"{th}: bit-equal")
-    surv = compact.compact(bits, counts, thresh)
-    out_k = base.clone()
-    walk.walk(def_d, CORPUS, surv, out_k, eng._walk)
-    out_p = base.clone()
-    walk.walk_plain(def_d, CORPUS, surv, out_p, eng._walk)
-    k2_err = max_abs_err(out_k, out_p)
-    assert k2_err == 0, "K2 != plain"
-    k2_deep = int((out_k != base).sum())
-    print(f"K2 vs plain: DEFCON-like {CORPUS // MB} MB, {surv.numel()} "
-          f"survivors bit-equal ({k2_deep} deep matches)")
 
-    bsurv = compact.compact(bbits, bcounts, block + 1)
+    def walker_cases(nm, run, plain, d, pos, count, base_, tabs) -> int:
+        """A walker against its plain version on the exact positions: the
+        pipeline's buffer and device count, a buffer longer than its count
+        whose words past it are survivors (not to be walked), a count of
+        0, and a data view 3 bytes in (its own survivors). -> max error."""
+        exact = pos[:int(count)]
+        one = lambda k: torch.tensor([k], dtype=torch.int32, device=dev)
+        view, vn = d[3:], d.shape[0] - 3
+        vpos = (exact[exact >= 3] - 3).contiguous()
+        cases = [("buffer and device count", d, d.shape[0], pos, count, exact),
+                 ("buffer past the count", d, d.shape[0], exact,
+                  one(exact.numel() // 2), exact[:exact.numel() // 2]),
+                 ("count 0", d, d.shape[0], exact, one(0), exact[:0]),
+                 ("unaligned view (data % 16 = "
+                  f"{view.data_ptr() % 16})", view, vn, vpos, None, vpos)]
+        err = 0
+        for case, dd, nn, buf, cnt, want_pos in cases:
+            ok, op = base_.clone(), base_.clone()
+            run(dd, nn, buf, ok, tabs, cnt)
+            plain(dd, nn, want_pos, op, tabs)
+            err = max(err, max_abs_err(ok, op))
+            assert err == 0, f"{nm} != plain: {case}"
+            print(f"{nm} vs plain: {case}, {want_pos.numel()} survivors "
+                  f"walked, bit-equal ({int((ok != base_).sum())} deep "
+                  f"matches)")
+        return err
+
+    surv, surv_n = compact.compact(bits, counts, thresh)
+    k2_err = walker_cases("K2", walk.walk, walk.walk_plain, def_d, surv,
+                          surv_n, base, eng._walk)
+    out_k = base.clone()
+    walk.walk(def_d, CORPUS, surv, out_k, eng._walk, surv_n)
+    k2_deep = int((out_k != base).sum())
+
+    bsurv, bsurv_n = compact.compact(bbits, bcounts, block + 1)
+    k4_err = walker_cases("CSR walk", csr_walk.csr_walk,
+                          csr_walk.csr_walk_plain, big_d, bsurv, bsurv_n,
+                          bbase, engb._csr)
     bout_k = bbase.clone()
-    csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr)
-    bout_p = bbase.clone()
-    csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p, engb._csr)
-    k4_err = max_abs_err(bout_k, bout_p)
-    assert k4_err == 0, "CSR walk != plain"
+    csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr, bsurv_n)
     k4_deep = int((bout_k != bbase).sum())
-    print(f"CSR walk vs plain: big-ruleset {CORPUS // MB} MB, {bsurv.numel()} "
-          f"survivors bit-equal ({k4_deep} deep matches)")
 
     def k3_case(nm: str, d: torch.Tensor, n: int, e) -> int:
         """K3 against block_walk_plain on d[:n]; keeps the inputs."""
@@ -417,8 +432,31 @@ def main() -> int:
     for case in axis0_gather_probe.cases(dev, paths=("direct", "staged")):
         assert harness.check(case) == 0
         print(f"G2 vs plain: {case.name}: bit-equal ({case.kernel})")
-    del out_p, bout_p, got, want
+    del got, want
     torch.cuda.empty_cache()
+
+    # F1: walk-tier tables whose entry tables alone outgrow the walk
+    # kernels' shared memory (ROADMAP.md): 17,000 random 6-byte patterns
+    # (seed 17000) and zzzz, zzzzzzzz, on F1_BYTES of random bytes with a
+    # pattern planted every 177 bytes and one dense block of z
+    t0 = time.perf_counter()
+    frng = np.random.default_rng(17000)
+    fpats = [bytes(frng.integers(0, 256, size=6, dtype=np.uint8))
+             for _ in range(17000)] + [b"zzzz", b"zzzzzzzz"]
+    mf = pt.Matcher(fpats, device="cuda")
+    engf = mf._engine()
+    f1 = rulesets.mixed_density(np.random.default_rng(5), fpats, F1_BYTES,
+                                F1_BYTES)
+    f1[5 * block:6 * block] = ord("z")
+    f1_d = torch.from_numpy(f1).to(dev)
+    f1_k2 = walk.launch_plan(engf._walk, dev)[1]
+    f1_k3 = block_walk.launch_plan(
+        engf._walk, npad_for(F1_BYTES) // block_walk.CHUNK, dev)[3]
+    print(f"f1 ruleset: {len(fpats)} patterns, walk arena "
+          f"{engf._walk.arena.numel() * 4} bytes, entry tables "
+          f"{4 * walk.table_ends(engf._walk)[1]} bytes; arena words resident "
+          f"in shared memory: K2 {f1_k2}, K3 {f1_k3}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 6. the main path on every corpus, counted
     corpora = [
@@ -428,6 +466,7 @@ def main() -> int:
         ("all_match", m1, a_d, all_a, SLICE, 0.0),
         ("no_match", m1, b_d, all_b, SLICE, 0.0),
         ("mixed", mm, mix_d, mixed, SLICE, 0.0),
+        ("f1_entry_tables", mf, f1_d, f1, F1_BYTES, GOLDEN_SECONDS),
     ]
     counters = (sieve.LAUNCHES, compact.LAUNCHES)
 
@@ -456,12 +495,28 @@ def main() -> int:
     print(f"main path launches: {json.dumps(main_launches)}; aten::nonzero "
           f"calls: {nonzero}")
     assert nonzero == 0, "the main path called torch.nonzero"
+    # no host synchronisation: the same calls again, warm, where any
+    # synchronising call raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [mt.match_device(d) for _, mt, d, _, _, _ in corpora]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(a_, r_) for a_, r_ in zip(again, results))
+    del again
+    print(f"sync check: match_device on {len(corpora)} corpora under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host "
+          f"synchronisation, results equal")
     for (nm, mt, d, host, step, secs), res, per in zip(corpora, results,
                                                        per_corpus):
+        e = mt._engine()
         assert sum(per[k] for k in sieve.LAUNCHES) == 1, (nm, per)
         assert per["compact_scan_kernel"] == per["compact_kernel"] == 1, \
             (nm, per)
-        e = mt._engine()
+        # each tier's walker launches once a call, whatever the count
+        assert per["walk_kernel"] == (e._walk is not None), (nm, per)
+        assert per["csr_walk_kernel"] == (e._csr is not None), (nm, per)
+        assert per["block_walk_kernel"] == (e._walk is not None), (nm, per)
         n = d.shape[0]
         npd = npad_for(n)
         assert res.dtype == torch.int32 and res.shape[0] == npd
@@ -478,7 +533,7 @@ def main() -> int:
               f"{int((res > 0).sum())} matching positions; {esc} blocks "
               f"escaped; launches "
               f"{json.dumps({k: v for k, v in per.items() if v})}")
-        if nm in ("all_match", "mixed"):
+        if nm in ("all_match", "mixed", "f1_entry_tables"):
             assert esc > 0, f"{nm}: the escape was not taken"
         golden_check(mt.automaton, host, res, nm, step, secs)
     del results
@@ -528,13 +583,14 @@ def main() -> int:
               f"{k1_big_plain:.3f} ms, bound {k1_bound:.4f} ms)  "
               f"[{name_limit}]")
 
-    # compaction of the DEFCON-like survivors: the wrapper (two launches and
-    # the 4-byte copy of the total), each kernel's device time, the plain
+    # compaction of the DEFCON-like survivors: the wrapper (two launches,
+    # the count left on the device), each kernel's device time, the plain
     # version and torch.nonzero over the same positions as uint8 flags
+    surv_exact = surv[:int(surv_n)]
     flags_u8 = sieve.unpack_bits(bits)
     flags_u8.view(nblocks, -1)[counts >= thresh] = 0
     assert torch.equal(torch.nonzero(flags_u8).reshape(-1).to(torch.int32),
-                       surv)
+                       surv_exact)
     comp_ms = cuda_ms(lambda: compact.compact(bits, counts, thresh))
     comp_plain = cuda_ms(lambda: compact.compact_plain(bits, counts, thresh),
                          reps=3, warmup=1)
@@ -546,36 +602,114 @@ def main() -> int:
     live = int(((counts > 0) & (counts < thresh)).sum())
     scan_bound = bound_ms(4 * nblocks + 4 * (nblocks + 1))
     expand_bound = bound_ms(8 * nblocks + live * (block // 8)
-                            + 4 * surv.numel())
-    print(f"time compaction DEFCON-like {CORPUS // MB} MB, {surv.numel()} "
-          f"survivors: wrapper {comp_ms:.4f} ms (compact_scan_kernel "
-          f"{scan_ms:.4f} ms, bound {scan_bound:.4f}; compact_kernel "
-          f"{expand_ms:.4f} ms, bound {expand_bound:.4f}; torch.nonzero over "
-          f"uint8 flags {nonzero_ms:.4f} ms; plain {comp_plain:.3f} ms)  "
-          f"[{name_limit}]")
+                            + 4 * surv_exact.numel())
+    print(f"time compaction DEFCON-like {CORPUS // MB} MB, "
+          f"{surv_exact.numel()} survivors: wrapper {comp_ms:.4f} ms "
+          f"(compact_scan_kernel {scan_ms:.4f} ms, bound {scan_bound:.4f}; "
+          f"compact_kernel {expand_ms:.4f} ms, bound {expand_bound:.4f}; "
+          f"torch.nonzero over uint8 flags {nonzero_ms:.4f} ms; plain "
+          f"{comp_plain:.3f} ms)  [{name_limit}]")
     del flags_u8
 
     # the walks only write deep matches, so repeating one on one buffer
-    # repeats the same work and leaves the same result
-    k2_ms = cuda_ms(lambda: walk.walk(def_d, CORPUS, surv, out_k, eng._walk),
-                    batch=batch)
-    out_p = base.clone()
-    k2_plain = cuda_ms(
-        lambda: walk.walk_plain(def_d, CORPUS, surv, out_p, eng._walk),
-        reps=3, warmup=1)
-    assert torch.equal(out_k, out_p)
-    k4_ms = cuda_ms(
-        lambda: csr_walk.csr_walk(big_d, CORPUS, bsurv, bout_k, engb._csr),
-        batch=batch)
-    bout_p = bbase.clone()
-    k4_plain = cuda_ms(
-        lambda: csr_walk.csr_walk_plain(big_d, CORPUS, bsurv, bout_p,
-                                        engb._csr), reps=3, warmup=1)
-    assert torch.equal(bout_k, bout_p)
-    # a walk reads each survivor's position and at least its 4 entry
-    # bytes, and writes its deep match
-    k2_bound = bound_ms(8 * surv.numel() + 4 * k2_deep)
-    k4_bound = bound_ms(8 * bsurv.numel() + 4 * k4_deep)
+    # repeats the same work and leaves the same result. A walk reads each
+    # survivor's position and at least its 4 entry bytes, and writes its
+    # deep match
+    def walker_time(kernel, nm, run, d, base_, pos, count, tabs, plain=None,
+                    plist=None):
+        """-> (batched ms, profiler ms, plain ms or None, bound ms, survivors,
+        deep matches, floor) of a walker on the pipeline's buffer and count.
+        With the pattern list `plist`, floor is (profiler ms, bytes) of the
+        walker on the one survivor whose match is longest alone: the chain
+        of the run's deepest walk, which no spreading of survivors over
+        lanes can shorten; else None."""
+        out = base_.clone()
+        fn = lambda: run(d, d.shape[0], pos, out, tabs, count)
+        fn()
+        ms_ = cuda_ms(fn, batch=batch)
+        prof = kernel_ms(device_ms(fn, need=(kernel,)), kernel, ms_)
+        exact = pos[:int(count)]
+        plain_ms = None
+        if plain is not None:
+            op = base_.clone()
+            plain_ms = cuda_ms(lambda: plain(d, d.shape[0], exact, op, tabs),
+                               reps=3, warmup=1)
+            assert torch.equal(out, op), f"{nm}: {kernel} != plain"
+        deep = int((out != base_).sum())
+        floor = None
+        if plist is not None:
+            lens = torch.tensor([0] + [len(q) for q in plist], device=dev)
+            at = int(torch.argmax(lens[out[exact.long()].long()]))
+            one = exact[at:at + 1].clone()
+            alone = lambda: run(d, d.shape[0], one, out, tabs)
+            floor = (kernel_ms(device_ms(alone, need=(kernel,)), kernel,
+                               cuda_ms(alone)),
+                     int(lens[out[one.long()].long()]))
+        return (ms_, prof, plain_ms, bound_ms(8 * exact.numel() + 4 * deep),
+                exact.numel(), deep, floor)
+
+    def floor_text(floor) -> str:
+        return ("" if floor is None else f"; the longest match's walk alone "
+                f"({floor[1]} bytes) {floor[0]:.4f} ms profiler")
+
+    rbase, rbits, rcounts = sieve.sieve(rand_d, CORPUS, npad, eng._sieve)
+    k2_inputs = {
+        "defcon_like": (def_d, base, surv, surv_n),
+        "random": (rand_d, rbase,
+                   *compact.compact(rbits, rcounts, thresh)),
+        "mixed": (mix_d, mbase, *compact.compact(mbits, mcounts, thresh))}
+    k2 = {}
+    for nm, (d, b_, pos_, cnt_) in k2_inputs.items():
+        e = mm._engine() if nm == "mixed" else eng
+        k2[nm] = walker_time("walk_kernel", nm, walk.walk, d, b_, pos_, cnt_,
+                             e._walk, *((walk.walk_plain, pats)
+                                        if nm == "defcon_like" else ()))
+        ms2, prof2, plain2, bound2, n2, deep2, floor2 = k2[nm]
+        plan2, grid2 = walk.launch_plan(e._walk, dev)[1], walk.grid(e._walk,
+                                                                    dev)
+        print(f"time K2 walk_kernel {nm} ({n2} survivors, {deep2} deep "
+              f"matches; grid {grid2} CTAs x 1024 threads, "
+              f"{min(grid2, n2)} in use; {4 * plan2} of "
+              f"{4 * e._walk.arena.numel()} arena bytes resident): {ms2:.4f} "
+              f"ms batched, {prof2:.4f} ms profiler (plain "
+              f"{'not run' if plain2 is None else f'{plain2:.3f} ms'}, bound "
+              f"{bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
+    del rbase, rbits, rcounts, k2_inputs
+    # K2 on the DEFCON-like survivors with less of the arena resident: none,
+    # the entry tables, K3's prefix, and its own plan (what a deeper
+    # residency could still win)
+    key = ("k2_plan", dev.index)
+    plan = walk.launch_plan(eng._walk, dev)
+    sweep = {"none": 0, "entry": walk.table_ends(eng._walk)[1],
+             "K3's prefix": block_walk.launch_plan(
+                 eng._walk, npad // block_walk.CHUNK, dev)[3],
+             "K2's plan": plan[1]}
+    parts = []
+    try:
+        for nm, words in sweep.items():
+            eng._walk.derived[key] = (plan[0], words)
+            out = base.clone()
+            fn = lambda: walk.walk(def_d, CORPUS, surv, out, eng._walk, surv_n)
+            fn()
+            prof = kernel_ms(device_ms(fn, need=("walk_kernel",)),
+                             "walk_kernel", cuda_ms(fn, batch=batch))
+            assert torch.equal(out, out_k), f"K2 resident {nm} != plain"
+            parts.append(f"{nm} {4 * words} B {prof:.4f} ms")
+    finally:
+        eng._walk.derived[key] = plan
+    print(f"time K2 walk_kernel defcon_like by resident arena (profiler): "
+          f"{'; '.join(parts)}  [{name_limit}]")
+    del out
+    k2_ms, _, k2_plain, k2_bound, _, _, _ = k2["defcon_like"]
+    k4_ms, k4_prof, k4_plain, k4_bound, k4_n, _, k4_floor = walker_time(
+        "csr_walk_kernel", "big_ruleset", csr_walk.csr_walk, big_d, bbase,
+        bsurv, bsurv_n, engb._csr, csr_walk.csr_walk_plain, bpats)
+    print(f"time csr_walk_kernel big_ruleset ({k4_n} survivors, {k4_deep} "
+          f"deep matches; grid {csr_walk.grid(engb._csr, dev)} CTAs x 256 "
+          f"threads; {len(engb._csr.rows)} descriptor rows in shared "
+          f"memory): {k4_ms:.4f} ms batched, {k4_prof:.4f} ms profiler "
+          f"(plain {k4_plain:.3f} ms, bound {k4_bound:.5f} ms"
+          f"{floor_text(k4_floor)})  [{name_limit}]")
     # K3: the dense blocks' bytes and the counts read, the deep matches
     # written; repeating it rewrites the same words
     k3 = {}
@@ -606,26 +740,29 @@ def main() -> int:
               f"[{name_limit}]")
         del mk3, mp3
     k3_ms, k3_plain, k3_bound = k3["all_match"]
-    del out_p, bout_p
     torch.cuda.empty_cache()
-    print(f"time K2 walk_kernel {surv.numel()} DEFCON-like survivors: "
-          f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {k2_bound:.4f} "
-          f"ms)  [{name_limit}]")
-    print(f"time csr_walk_kernel {bsurv.numel()} big-ruleset survivors: "
-          f"{k4_ms:.4f} ms (plain {k4_plain:.3f} ms, bound {k4_bound:.4f} "
-          f"ms)  [{name_limit}]")
+    # match_device end to end (CUDA events, one call at a time), and the
+    # device's busy share of it: the sum of a call's kernels' profiler
+    # times over the e2e median (no kernel runs twice in a call)
     for nm, mt, d, _, _, _ in corpora:
         ms = cuda_ms(lambda: mt.match_device(d))
         n = d.shape[0]
-        print(f"time match_device {nm} {n // MB} MB: {ms:.4f} ms = "
-              f"{n / ms / 1e6:.2f} GB/s  [{name_limit}]")
+        rows, wall_ms = profiled(lambda: mt.match_device(d), 5)
+        busy = sum(t for t, _, _ in rows)
+        print(f"time match_device {nm} {n / MB:.0f} MB: {ms:.4f} ms = "
+              f"{n / ms / 1e6:.2f} GB/s; device busy {busy:.4f} ms = "
+              f"{100 * busy / ms:.1f}% of it  [{name_limit}]")
+        print(f"breakdown {nm}: device busy {busy:.4f} ms per call, "
+              f"{100 * busy / wall_ms:.1f}% of host wall time {wall_ms:.4f} "
+              f"ms under the profiler (5 calls)")
+        for t, c, key in rows[:8]:
+            print(f"  {t:.4f} ms  {100 * t / busy:5.1f}%  {c} recorded  "
+                  f"{key[:64]}")
     ms = cuda_ms(lambda: pipeline.run(a_d, BENCH1, npad_for(BENCH1),
                                       eng1._sieve, eng1._walk, escape=False))
     print(f"time all_match {BENCH1 // MB} MB escape disarmed (K2 over every "
           f"survivor): {ms:.4f} ms = {BENCH1 / ms / 1e6:.2f} GB/s  "
           f"[{name_limit}]")
-    for nm, mt, d, _, _, _ in corpora:
-        breakdown(nm, lambda: mt.match_device(d))
     print(f"clocks after phase 8 (sm, max sm, power, temperature): "
           f"{harness.clocks()}")
 

@@ -42,14 +42,20 @@ _SIGNATURES = {
     "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P],
     # device, bits, counts, offsets, nblocks, block, thresh, pos, stream
     "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
-    # device, data, n, pos, count, arena, desc, nsteps, out, stream
-    "pfac_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    # device, data, n, pos, count, cap, arena, words, resident, desc,
+    # nsteps, out, stream
+    "pfac_walk": [ctypes.c_int, _P, _I, _P, _P, _I, _P, _I, _I, _P, _I, _P,
+                  _P],
+    # device, nsteps, resident, words, grid
+    "pfac_walk_grid": [ctypes.c_int, _I, _I, _I, _P],
     # device, data, n, counts, nblocks, block, thresh, arena, words,
     # resident, desc, nsteps, look, cap, out, stream
     "pfac_block_walk": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _P, _I, _I, _P,
                         _I, _I, _I, _P, _P],
-    # device, data, n, pos, count, arena, desc, nsteps, out, stream
-    "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _I, _P, _P, _I, _P, _P],
+    # device, data, n, pos, count, cap, arena, desc, nsteps, out, stream
+    "pfac_csr_walk": [ctypes.c_int, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P],
+    # device, nsteps, grid
+    "pfac_csr_walk_grid": [ctypes.c_int, _I, _P],
     # device, table, words, idx, n, placement, out, stream
     "pfac_word_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _P, _P],
     # device, tile, rows, cols, idx, m, k, axis, direct, out, stream

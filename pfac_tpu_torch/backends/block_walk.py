@@ -18,7 +18,9 @@ the escape needs no host round trip and a corpus without dense blocks pays
 one pass of the grid over the counts. A tile is walked from shared memory:
 its ``CHUNK`` bytes and :func:`lookahead` more arrive by an asynchronous
 bulk copy, and the walk tables are resident there by depth, as far as
-:func:`resident_words` finds room; deeper tables are read through L1/L2.
+:func:`resident_words` finds room (down to none: a ruleset whose entry
+tables outgrow the room is walked from L1/L2 whole); deeper tables are read
+through L1/L2.
 The reference batches 64 blocks per launch to save XLA dispatch; one launch
 covers every block here.
 
@@ -28,14 +30,13 @@ tile, each from its own slice of ``CHUNK + lookahead`` bytes.
 """
 from __future__ import annotations
 
-import bisect
-
 import torch
 
 from .. import _build
 from .probe import DESC_WORDS, Packed
 from .sieve import SMEM_LIMIT
-from .walk import walk_plain
+# K3 keeps K2's residency rule: the same tables, the same prefix
+from .walk import resident_words, steps_of, table_ends, walk_plain  # noqa: F401
 
 #: K3 launches since the count was last reset (only where the kernel runs)
 LAUNCHES = 0
@@ -45,10 +46,6 @@ CHUNK = 8192                # positions per tile; block % CHUNK == 0
 _PLAIN_CHUNK = 1 << 22      # positions per walk_plain call
 _WARPS = 16                 # as csrc/block_walk.cu
 _HEADER, _TILE_PAD, _WARP_STAGE = 32, 32, 4 * 512
-
-
-def steps_of(tabs: Packed) -> int:
-    return (len(tabs.rows) - 2) // 3
 
 
 def lookahead(nsteps: int) -> int:
@@ -71,35 +68,6 @@ def fixed_smem_bytes(nsteps: int, cap: int) -> int:
     tile = CHUNK + lookahead(nsteps) + _TILE_PAD
     return (_HEADER + 2 * tile + _WARPS * _WARP_STAGE
             + 4 * DESC_WORDS * (2 + 3 * nsteps) + 4 * cap)
-
-
-def table_ends(tabs: Packed) -> list[int]:
-    """Arena offsets at which a whole table (one descriptor row's arrays)
-    ends, ascending. pack() lays the arena in row order: entry,
-    entry_final, then every step's main, odd, even."""
-    ends = tabs.derived.get("table_ends")
-    if ends is None:
-        ends = []
-        for _, lg_b, lg_r, disp_off, key_off, val_off, present, _ in tabs.rows:
-            if present:
-                ends.append(max(disp_off + (1 << lg_b) if disp_off >= 0 else 0,
-                                key_off + (1 << lg_r), val_off + (1 << lg_r)))
-        if ends != sorted(ends) or (ends and ends[-1] != tabs.arena.numel()):
-            raise ValueError("the walk arena is not laid out in row order")
-        tabs.derived["table_ends"] = ends
-    return ends
-
-
-def resident_words(tabs: Packed, budget: int) -> int:
-    """Words of the arena K3 keeps in shared memory: the longest prefix of
-    whole tables within `budget` bytes. The entry tables, which every
-    position probes, must fit."""
-    ends = table_ends(tabs)
-    entry = ends[sum(1 for r in tabs.rows[:2] if r[6]) - 1]   # rows 0 and 1
-    if 4 * entry > budget:
-        raise ValueError(f"the walk's entry tables ({4 * entry} bytes) do not "
-                         f"fit K3's shared memory ({budget} bytes left)")
-    return ends[bisect.bisect_right(ends, budget // 4) - 1]
 
 
 def _check(data, n, counts, match, tabs: Packed) -> int:
@@ -147,7 +115,8 @@ def block_walk(data: torch.Tensor, n: int, counts: torch.Tensor,
 def launch_plan(tabs: Packed, ntiles: int,
                 device: torch.device) -> tuple[int, int, int, int]:
     """(nsteps, lookahead, tile-number room, resident arena words) of a K3
-    launch over `ntiles` tiles on a CUDA device; kept with the tables."""
+    launch over `ntiles` tiles on a CUDA device; kept with the tables. The
+    resident words may be 0: every plan fits."""
     key = ("k3_plan", ntiles, device.index)
     plan = tabs.derived.get(key)
     if plan is None:

@@ -7,9 +7,10 @@ K1's survivor bitmap and per-block counts they list the survivor positions
 in ascending order, as int32, leaving out every block whose count reaches
 the dense threshold (``block // DENSE_ESCAPE_DIV`` when the escape is
 armed): the escape (K3) walks those blocks whole. ``compact_scan_kernel``
-scans the counts into block offsets and the total; the wrapper copies the
-total to the host (4 bytes, the pipeline's one host round trip) to size
-the positions; ``compact_kernel`` expands each block's bits.
+scans the counts into block offsets and the total; ``compact_kernel``
+expands each block's bits. The total stays on the device: the positions go
+into a buffer whose size needs no count (:func:`capacity`), and the walkers
+read the total there, so the host never waits for it.
 """
 from __future__ import annotations
 
@@ -38,16 +39,28 @@ def _check(bits: torch.Tensor, counts: torch.Tensor) -> int:
     return block
 
 
+def capacity(nblocks: int, block: int, thresh: int) -> int:
+    """Room for the positions compact() lists: a block it does not leave
+    out has fewer than `thresh` survivors, and never more than `block`
+    (with the escape armed at 128 MB: 2,048 blocks x 16,383, 134 MB of
+    int32; disarmed, as on the CSR tier, npad positions)."""
+    return nblocks * max(0, min(thresh - 1, block))
+
+
 def compact(bits: torch.Tensor, counts: torch.Tensor,
-            thresh: int) -> torch.Tensor:
-    """Positions of the set bits of `bits` (bit j of word w: position
-    32w + j), ascending, int32, without the blocks whose count is at least
-    `thresh`. `counts[b]` must be block b's number of set bits. A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernels."""
+            thresh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (pos, count): the positions of the set bits of `bits` (bit j of
+    word w: position 32w + j), ascending, int32, without the blocks whose
+    count is at least `thresh`, in pos[:count]; count is a 1-element int32
+    tensor on the bits' device. `counts[b]` must be block b's number of set
+    bits. A CPU tensor runs the plain version (pos is exact); a CUDA tensor
+    launches the kernels into a buffer of :func:`capacity` positions, whose
+    words past the count are undefined, and reads nothing back."""
     block = _check(bits, counts)
     dev = bits.device
     if dev.type == "cpu":
-        return compact_plain(bits, counts, thresh)
+        pos = compact_plain(bits, counts, thresh)
+        return pos, torch.tensor([pos.shape[0]], dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"no compaction for device {dev}")
     nblocks = counts.shape[0]
@@ -58,13 +71,14 @@ def compact(bits: torch.Tensor, counts: torch.Tensor,
                                thresh, offsets.data_ptr(), stream)
     LAUNCHES["compact_scan_kernel"] += 1
     _build.check(rc, "compact_scan_kernel")
-    pos = torch.empty(int(offsets[nblocks]), dtype=torch.int32, device=dev)
+    pos = torch.empty(capacity(nblocks, block, thresh), dtype=torch.int32,
+                      device=dev)
     rc = lib.pfac_compact(dev.index or 0, bits.data_ptr(), counts.data_ptr(),
                           offsets.data_ptr(), nblocks, block, thresh,
                           pos.data_ptr(), stream)
     LAUNCHES["compact_kernel"] += 1
     _build.check(rc, "compact_kernel")
-    return pos
+    return pos, offsets[nblocks:]
 
 
 def compact_plain(bits: torch.Tensor, counts: torch.Tensor,

@@ -62,12 +62,17 @@ class CsrTables:
     def to_device(self, device) -> Packed:
         """One int32 arena: the entry rows at offset 0, then each step's
         rows. Descriptor rows of ``DESC_WORDS`` words: row 0 is
-        ``[0, entry_lgb, entry_width, 0]``; row 1 + s is ``[word offset,
-        row count, depth, chain]`` of step s. Every offset is a multiple of
-        4 words, so a 24-word row loads as six 16-byte vectors."""
-        parts = [self.entry_rows.reshape(-1)]
+        ``[0, entry_lgb, width, 0]``; row 1 + s is ``[word offset, row
+        count, depth, chain]`` of step s. The entry rows are padded with
+        empty triples (meta 0, never a hit) to a width that is a multiple
+        of 4, and every offset is a multiple of 4 words, so every row loads
+        as whole 16-byte vectors (a 24-word step row as six)."""
+        width = -(-self.entry_width // 4) * 4
+        entry = np.zeros((self.entry_rows.shape[0], 3 * width), np.int32)
+        entry[:, :self.entry_rows.shape[1]] = self.entry_rows
+        parts = [entry.reshape(-1)]
         off = parts[0].size
-        rows = [(0, self.entry_lgb, self.entry_width, 0)]
+        rows = [(0, self.entry_lgb, width, 0)]
         for s in self.steps:
             assert off % 4 == 0
             rows.append((off, s.rows.shape[0], s.depth, s.chain))

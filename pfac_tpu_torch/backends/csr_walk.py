@@ -4,12 +4,16 @@ plain torch version.
 The kernel (``csrc/csr_walk.cu``) replaces the Pallas word-align kernel
 ``pfac_tpu.backends.pallas_walk._make_align_kernel`` together with the XLA
 CSR walk of ``pfac_tpu.backends.xla_csr`` (``_entry_probe``,
-``_probe_step``). One thread walks one survivor position over the CSR tables
+``_probe_step``). It walks every survivor position over the CSR tables
 (``csr_tables.py``) and writes ``out[pos] = id`` of the longest match of
 >= 4 bytes, only where there is one; the result equals
-``xla_csr.csr_oracle_walk`` at every position.
+``xla_csr.csr_oracle_walk`` at every position. As K2 does, it reads the
+survivor count on the device, on a persistent grid whose lanes take the
+next survivor as soon as a walk ends.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,22 +27,21 @@ LAUNCHES = 0
 
 
 def csr_walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
-             tabs: Packed) -> None:
-    """Walk every position in `pos` (each < n) and write the longest match
-    of >= 4 bytes into `out` in place. A CPU tensor runs the plain version;
-    a CUDA tensor launches the kernel."""
-    _check(data, n, pos, out, tabs)
+             tabs: Packed, count: torch.Tensor | None = None) -> None:
+    """Walk the first `count` positions of `pos` (all of them without a
+    count; each < n) and write the longest match of >= 4 bytes into `out`
+    in place. A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel, which reads `count` on the device, once whatever the
+    count."""
+    _check(data, n, pos, out, tabs, count)
     if data.device.type == "cpu":
-        return csr_walk_plain(data, n, pos, out, tabs)
+        return csr_walk_plain(data, n, pos, out, tabs, count)
     if data.device.type != "cuda":
         raise ValueError(f"no CSR walker for device {data.device}")
-    if pos.shape[0] == 0:
-        return None
     global LAUNCHES
-    lib = _build.load()
-    rc = lib.pfac_csr_walk(
-        data.device.index or 0, data.data_ptr(), n,
-        pos.data_ptr(), pos.shape[0],
+    rc = _build.load().pfac_csr_walk(
+        data.device.index or 0, data.data_ptr(), n, pos.data_ptr(),
+        None if count is None else count.data_ptr(), pos.shape[0],
         tabs.arena.data_ptr(), tabs.desc.data_ptr(), len(tabs.rows) - 1,
         out.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
     LAUNCHES += 1
@@ -46,10 +49,24 @@ def csr_walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
     return None
 
 
+def grid(tabs: Packed, device: torch.device) -> int:
+    """CTAs of the CSR walk's persistent grid for these tables on a CUDA
+    device."""
+    out = ctypes.c_int64()
+    _build.check(_build.load().pfac_csr_walk_grid(
+        device.index or 0, len(tabs.rows) - 1, ctypes.byref(out)),
+        "csr_walk_kernel grid")
+    return out.value
+
+
 def csr_walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
-                   out: torch.Tensor, tabs: Packed) -> None:
-    """Plain torch version of the CSR walk, on the data's device: int64
-    arithmetic, keys compared as uint32."""
+                   out: torch.Tensor, tabs: Packed,
+                   count: torch.Tensor | None = None) -> None:
+    """Plain torch version of the CSR walk, on the data's device: the first
+    `count` positions of `pos`, or all of them; int64 arithmetic, keys
+    compared as uint32."""
+    if count is not None:
+        pos = pos[:int(count)]
     a = unsigned(tabs.arena)
     p = pos.to(torch.int64)
     maxd = n - p

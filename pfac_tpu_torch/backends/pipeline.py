@@ -14,6 +14,11 @@ into K1's result in place:
 * CSR tier (rulesets the walk tables cannot hold): compaction of every
   survivor, then the CSR walk (``csr_walk.py``) in one launch.
 
+Nothing on the path waits for the device: the compaction leaves the
+survivor count on the device, in a 1-element tensor beside a positions
+buffer sized without it, and the walkers read it there. The tables'
+placements and launch plans are kept with the tables.
+
 The reference gates its escape on ``max_len + 4 <= HALO_ROWS * LANES``: its
 K3 stages a block and a fixed lookahead in VMEM. K3 here stages tiles whose
 lookahead follows the walk's depth, so the escape is armed whenever the
@@ -50,7 +55,6 @@ def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
     `plain=True` runs the plain torch versions on the data's device instead
     of the kernels (the reference the card run checks)."""
     sieve = sieve_mod.sieve_plain if plain else sieve_mod.sieve
-    compact = compact_mod.compact_plain if plain else compact_mod.compact
     match, bits, counts = sieve(data, n, npad, sieve_tabs, block)
     if walk_tabs is None and csr_tabs is None:
         return match
@@ -61,11 +65,14 @@ def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
         bw(data, n, counts, match, walk_tabs)
     # no block reaches block + 1 survivors: disarmed, nothing is skipped
     thresh = block // block_walk_mod.DENSE_ESCAPE_DIV if armed else block + 1
-    pos = compact(bits, counts, thresh)
+    if plain:
+        pos, count = compact_mod.compact_plain(bits, counts, thresh), None
+        walk, csr = walk_mod.walk_plain, csr_walk_mod.csr_walk_plain
+    else:           # the count stays on the device: no host round trip
+        pos, count = compact_mod.compact(bits, counts, thresh)
+        walk, csr = walk_mod.walk, csr_walk_mod.csr_walk
     if walk_tabs is not None:
-        walk = walk_mod.walk_plain if plain else walk_mod.walk
-        walk(data, n, pos, match, walk_tabs)
+        walk(data, n, pos, match, walk_tabs, count)
     else:
-        csr = csr_walk_mod.csr_walk_plain if plain else csr_walk_mod.csr_walk
-        csr(data, n, pos, match, csr_tabs)
+        csr(data, n, pos, match, csr_tabs, count)
     return match

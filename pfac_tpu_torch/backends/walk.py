@@ -1,26 +1,101 @@
 """Survivor walk: kernel K2 and its plain torch version.
 
 K2 (``csrc/walk.cu``) replaces the Pallas survivor walker
-``pfac_tpu.backends.pallas_walk._make_walk_kernel``. One thread walks one
+``pfac_tpu.backends.pallas_walk._make_walk_kernel``. It walks every
 survivor position to full depth over the depth-sliced exact tables
 (``walk_tables.py``) and writes ``out[pos] = id`` of the longest match of
 >= 4 bytes, only where there is one. The sieve already wrote the exact
 depth-1..3 match at every position, and a match of >= 4 bytes is always
 longer, so the walk updates the sieve's result in place.
+
+The positions may come in a buffer longer than the survivors, with their
+number in a 1-element device tensor (the compaction's total): the kernel
+reads the count on the device, so the host never waits for it. The kernel
+runs on a persistent grid whose lanes take the next survivor as soon as a
+walk ends, with the descriptor rows and, by depth, as much of the arena as
+fits (:func:`resident_words`) in shared memory.
 """
 from __future__ import annotations
+
+import bisect
+import ctypes
 
 import torch
 
 from .. import _build
-from .probe import Packed, probe, unsigned
+from .probe import DESC_WORDS, Packed, probe, unsigned
+from .sieve import SMEM_LIMIT
 from .walk_tables import DEAD
 
 #: K2 launches since the count was last reset (only where the kernel runs)
 LAUNCHES = 0
 
+_HEADER = 16                # the tables' mbarrier, as csrc/walk.cu
 
-def _check(data, n, pos, out, tabs: Packed) -> None:
+
+def steps_of(tabs: Packed) -> int:
+    return (len(tabs.rows) - 2) // 3
+
+
+def table_ends(tabs: Packed) -> list[int]:
+    """Arena offsets at which a whole table (one descriptor row's arrays)
+    ends, ascending. pack() lays the arena in row order: entry,
+    entry_final, then every step's main, odd, even."""
+    ends = tabs.derived.get("table_ends")
+    if ends is None:
+        ends = []
+        for _, lg_b, lg_r, disp_off, key_off, val_off, present, _ in tabs.rows:
+            if present:
+                ends.append(max(disp_off + (1 << lg_b) if disp_off >= 0 else 0,
+                                key_off + (1 << lg_r), val_off + (1 << lg_r)))
+        if ends != sorted(ends) or (ends and ends[-1] != tabs.arena.numel()):
+            raise ValueError("the walk arena is not laid out in row order")
+        tabs.derived["table_ends"] = ends
+    return ends
+
+
+def resident_words(tabs: Packed, budget: int) -> int:
+    """Words of the arena a walk kernel (K2, K3) keeps in shared memory: the
+    longest prefix of whole tables within `budget` bytes, 0 when not even
+    the entry table fits. The kernels read every word past it through
+    L1/L2."""
+    if budget < 0:
+        raise ValueError(f"a negative shared-memory budget ({budget} bytes): "
+                         "the kernel's fixed part does not fit")
+    ends = table_ends(tabs)
+    k = bisect.bisect_right(ends, budget // 4)
+    return ends[k - 1] if k else 0
+
+
+def fixed_smem_bytes(nsteps: int) -> int:
+    """K2's dynamic shared memory without the resident tables
+    (csrc/walk.cu): its header and the descriptor rows."""
+    return _HEADER + 4 * DESC_WORDS * (2 + 3 * nsteps)
+
+
+def launch_plan(tabs: Packed, device: torch.device) -> tuple[int, int]:
+    """(nsteps, resident arena words) of a K2 launch; kept with the
+    tables."""
+    key = ("k2_plan", device.index)
+    plan = tabs.derived.get(key)
+    if plan is None:
+        nsteps = steps_of(tabs)
+        plan = tabs.derived[key] = (
+            nsteps, resident_words(tabs, SMEM_LIMIT - fixed_smem_bytes(nsteps)))
+    return plan
+
+
+def grid(tabs: Packed, device: torch.device) -> int:
+    """CTAs of K2's persistent grid for these tables on a CUDA device."""
+    nsteps, resident = launch_plan(tabs, device)
+    out = ctypes.c_int64()
+    _build.check(_build.load().pfac_walk_grid(
+        device.index or 0, nsteps, resident, tabs.arena.numel(),
+        ctypes.byref(out)), "walk_kernel grid")
+    return out.value
+
+
+def _check(data, n, pos, out, tabs: Packed, count=None) -> None:
     if data.dtype != torch.uint8 or data.dim() != 1 or not data.is_contiguous():
         raise ValueError("data must be a contiguous 1-D uint8 tensor")
     if not 0 <= n <= data.shape[0] or out.shape[0] < n:
@@ -29,39 +104,45 @@ def _check(data, n, pos, out, tabs: Packed) -> None:
         raise ValueError("positions must be a contiguous 1-D int32 tensor")
     if out.dtype != torch.int32 or out.dim() != 1 or not out.is_contiguous():
         raise ValueError("out must be a contiguous 1-D int32 tensor")
-    for t in (pos, out, tabs.arena, tabs.desc):
-        if t.device != data.device:
+    if count is not None and (count.dtype != torch.int32 or count.numel() != 1
+                              or not count.is_contiguous()):
+        raise ValueError("count must be a contiguous 1-element int32 tensor")
+    for t in (pos, out, tabs.arena, tabs.desc, count):
+        if t is not None and t.device != data.device:
             raise ValueError("all tensors must be on the data's device")
 
 
 def walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
-         tabs: Packed) -> None:
-    """Walk every position in `pos` (each < n) and write the longest match
-    of >= 4 bytes into `out` in place. A CPU tensor runs the plain version;
-    a CUDA tensor launches K2."""
-    _check(data, n, pos, out, tabs)
+         tabs: Packed, count: torch.Tensor | None = None) -> None:
+    """Walk the first `count` positions of `pos` (all of them without a
+    count; each < n) and write the longest match of >= 4 bytes into `out`
+    in place. A CPU tensor runs the plain version; a CUDA tensor launches
+    K2, which reads `count` on the device, once whatever the count."""
+    _check(data, n, pos, out, tabs, count)
     if data.device.type == "cpu":
-        return walk_plain(data, n, pos, out, tabs)
+        return walk_plain(data, n, pos, out, tabs, count)
     if data.device.type != "cuda":
         raise ValueError(f"no walker for device {data.device}")
-    if pos.shape[0] == 0:
-        return None
     global LAUNCHES
-    nsteps = (len(tabs.rows) - 2) // 3
-    lib = _build.load()
-    rc = lib.pfac_walk(
-        data.device.index or 0, data.data_ptr(), n,
-        pos.data_ptr(), pos.shape[0],
-        tabs.arena.data_ptr(), tabs.desc.data_ptr(), nsteps,
-        out.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
+    nsteps, resident = launch_plan(tabs, data.device)
+    rc = _build.load().pfac_walk(
+        data.device.index or 0, data.data_ptr(), n, pos.data_ptr(),
+        None if count is None else count.data_ptr(), pos.shape[0],
+        tabs.arena.data_ptr(), tabs.arena.numel(), resident,
+        tabs.desc.data_ptr(), nsteps, out.data_ptr(),
+        torch.cuda.current_stream(data.device).cuda_stream)
     LAUNCHES += 1
     _build.check(rc, "walk_kernel")
     return None
 
 
 def walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
-               out: torch.Tensor, tabs: Packed) -> None:
-    """Plain torch version of K2, on the data's device."""
+               out: torch.Tensor, tabs: Packed,
+               count: torch.Tensor | None = None) -> None:
+    """Plain torch version of K2, on the data's device: the first `count`
+    positions of `pos`, or all of them."""
+    if count is not None:
+        pos = pos[:int(count)]
     a = unsigned(tabs.arena)
     p = pos.to(torch.int64)
     maxd = n - p

@@ -39,9 +39,10 @@
 // * tables resident by depth: the arena is laid out in row order (entry,
 //   entry_final, then each step's main, odd, even), and its first
 //   `resident` words (the host picks the longest prefix of whole tables
-//   that fits, backends/block_walk.py) are staged in shared memory by bulk
-//   copy; a probe reads word i from there when i < resident, else through
-//   L1/L2 (__ldg);
+//   that fits, backends/walk.py::resident_words, down to none when not even
+//   the entry table fits) are staged in shared memory by bulk copy; a
+//   probe reads word i from there when i < resident, else through L1/L2
+//   (__ldg);
 // * probes go kBatch positions at a time, stage by stage (all slots, then
 //   all keys and values), so a thread keeps kBatch independent loads in
 //   flight; a dead position's key carries the DEAD index, which no table
@@ -55,14 +56,15 @@
 // * results are staged per warp in shared memory with K1's XOR swizzle and
 //   leave as 128-byte warp stores, each word predicated on match != 0;
 // * the grid size (an occupancy query) and the shared-memory attribute are
-//   cached on the host per device and shared-memory size.
+//   cached on the host per device and shared-memory size
+//   (walk_common.cuh, shared with K2 and the CSR walk).
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
 #include <type_traits>
 
 #include "probe.cuh"
+#include "walk_common.cuh"
 
 namespace {
 
@@ -76,85 +78,14 @@ constexpr int kChunk = kThreads * kPer;       // positions per tile: 8,192
 constexpr int kWarpPos = 32 * kPer;
 constexpr int kHeader = 32;                   // three mbarriers
 constexpr int kTilePad = 32;                  // alignment offset + over-read
-constexpr uint32_t kBulkMax = 1u << 15;       // bytes per bulk copy
 
-// Arena words: shared memory below `resident`, L1/L2 from there on.
-struct SplitTab {
-  const uint32_t* s;
-  const int32_t* __restrict__ g;
-  uint32_t resident;
-  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
-    return i < resident ? s[i] : static_cast<uint32_t>(__ldg(g + i));
-  }
-};
-
-// The whole arena in shared memory: no test, no global path.
-struct SmemTab {
-  const uint32_t* s;
-  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
-    return s[i];
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from src (16-byte aligned, global) to dst
-// (16-byte aligned, shared), completing on `bar`; one thread calls it after
-// mbar_expect(bar, bytes).
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  for (uint32_t off = 0; off < bytes; off += kBulkMax) {
-    const uint32_t len = bytes - off < kBulkMax ? bytes - off : kBulkMax;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(static_cast<char*>(dst) + off)),
-        "l"(static_cast<const char*>(src) + off), "r"(len), "r"(b)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ pfac::Probe smem_probe(const int32_t* sdesc, int row) {
-  const int32_t* d = sdesc + row * pfac::kDescWords;
-  pfac::Probe p;
-  p.mul = static_cast<uint32_t>(d[0]);
-  p.lg_b = d[1];
-  p.lg_r = d[2];
-  p.disp_off = d[3];
-  p.key_off = d[4];
-  p.val_off = d[5];
-  p.present = d[6];
-  return p;
-}
+using pfac::bulk_copy;
+using pfac::mbar_expect;
+using pfac::mbar_init;
+using pfac::mbar_wait;
+using pfac::smem_probe;
+using pfac::SmemTab;
+using pfac::SplitTab;
 
 // W little-endian words of the tile's bytes from byte offset `off` on.
 template <int W>
@@ -498,64 +429,18 @@ int64_t smem_bytes(int32_t nsteps, int32_t look, int32_t cap,
          4LL * pfac::kDescWords * (2 + 3 * nsteps) + 4LL * cap + 4LL * resident;
 }
 
-// The persistent grid at `smem` bytes of shared memory: as many CTAs as the
-// SMs hold. The attribute and occupancy queries cost tens of microseconds
-// of host time, so the last few results are kept, keyed by device and
-// shared memory (one per ruleset and corpus size in use).
-cudaError_t persistent_grid(bool all, int device, int64_t smem, int64_t* grid) {
-  struct Entry { int device = -1; int64_t smem = -1, grid = 0; };
-  constexpr int kEntries = 8;
-  constexpr int kDevices = 64;
-  static Entry caches[2][kEntries];
-  static int64_t alloweds[2][kDevices];  // largest shared memory allowed
-  static int nexts[2];
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  Entry (&cache)[kEntries] = caches[all];
-  int64_t (&allowed)[kDevices] = alloweds[all];
-  int& next = nexts[all];
-  const void* fn = all ? (const void*)block_walk_kernel<true>
-                       : (const void*)block_walk_kernel<false>;
-  for (const Entry& e : cache) {
-    if (e.device == device && e.smem == smem) {
-      *grid = e.grid;
-      return cudaSuccess;
-    }
-  }
-  if (device < 0 || device >= kDevices) return cudaErrorInvalidDevice;
-  cudaError_t err;
-  if (allowed[device] < smem) {   // never lowered: cached grids still fit
-    err = cudaFuncSetAttribute(fn,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed[device] = smem;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fn, kThreads, static_cast<size_t>(smem));
-  if (err != cudaSuccess) return err;
-  if (per_sm == 0) return cudaErrorInvalidConfiguration;
-  Entry& e = cache[next];
-  next = (next + 1) % kEntries;
-  e = Entry{device, smem, static_cast<int64_t>(per_sm) * sms};
-  *grid = e.grid;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // data: uint8[>= n], any alignment; counts: int32[nblocks] (K1's survivors
 // per block); out: int32[>= nblocks * block]; block % 8192 == 0; arena:
-// 16-byte aligned, its first `resident` words staged in shared memory;
-// `words` the arena's length (resident <= words); desc: 2 + 3 * nsteps
-// rows; look: the walk's lookahead in bytes, a
-// multiple of 16, >= 4 + 2 * nsteps; cap: room for a CTA's tile numbers, a
-// multiple of 4, cap * SMs >= nblocks * block / 8192. Else cudaErrorInvalidValue; tables
-// that do not fit shared memory fail the launch. Launches on `stream`;
-// returns the launch's cudaError_t.
+// 16-byte aligned, its first `resident` words staged in shared memory (any
+// prefix, 0 included: the words past it are read through L1/L2); `words`
+// the arena's length (resident <= words); desc: 2 + 3 * nsteps rows; look:
+// the walk's lookahead in bytes, a multiple of 16, >= 4 + 2 * nsteps; cap:
+// room for a CTA's tile numbers, a multiple of 4, cap * SMs >= nblocks *
+// block / 8192. Else cudaErrorInvalidValue; a prefix that does not fit
+// shared memory fails the launch. Launches on `stream`; returns the
+// launch's cudaError_t.
 extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
                                const void* counts, int32_t nblocks,
                                int32_t block, int32_t thresh,
@@ -573,7 +458,9 @@ extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
   const int64_t smem = smem_bytes(nsteps, look, cap, resident);
   int64_t grid;
   const bool all = resident == words;
-  err = persistent_grid(all, device, smem, &grid);
+  err = pfac::persistent_grid(all ? (const void*)block_walk_kernel<true>
+                                  : (const void*)block_walk_kernel<false>,
+                              kThreads, device, smem, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = static_cast<int64_t>(nblocks) * (block / kChunk);
   if (grid > tiles) grid = tiles;

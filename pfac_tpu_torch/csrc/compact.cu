@@ -9,8 +9,9 @@
 // counts[b] >= thresh is K3's and counts as empty. Two launches:
 // * compact_scan_kernel (one CTA): offsets[b] = the exclusive prefix sum of
 //   the blocks' counts with dense blocks as 0, offsets[nblocks] = total.
-//   The wrapper copies the total to the host (4 bytes, the path's one host
-//   round trip; torch.nonzero made the same one) to size the positions;
+//   The total stays on the device: the walkers read it there, and the
+//   positions go into a buffer sized without it (a block listed has fewer
+//   than thresh survivors), so the host never waits for the count;
 // * compact_kernel (one CTA per block): a block that is empty or dense
 //   returns at once; otherwise each thread takes block / 8192 consecutive
 //   bitmap words, the CTA scans the threads' popcounts (__shfl_up_sync in
@@ -116,7 +117,7 @@ extern "C" int pfac_compact_scan(int device, const void* counts,
 }
 
 // bits: int32[nblocks * block / 32]; counts: int32[nblocks]; offsets: the
-// scan's; pos: int32[offsets[nblocks]]; block % 8192 == 0, else
+// scan's; pos: int32[>= offsets[nblocks]]; block % 8192 == 0, else
 // cudaErrorInvalidValue. Launches on `stream`; returns cudaGetLastError().
 extern "C" int pfac_compact(int device, const void* bits, const void* counts,
                             const void* offsets, int32_t nblocks,

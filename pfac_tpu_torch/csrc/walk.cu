@@ -1,17 +1,16 @@
 // Kernel K2, the survivor walk: replaces
-// pfac_tpu/backends/pallas_walk.py::_make_walk_kernel. It walks positions
-// with the device function walk_position(). (K3, the dense-block walk, has
-// the same walk tile-wise in block_walk.cu.)
+// pfac_tpu/backends/pallas_walk.py::_make_walk_kernel. (K3, the dense-block
+// walk, has the same walk tile-wise in block_walk.cu.)
 //
-// walk_position(p) probes the BIG-endian entry key b0<<24|b1<<16|b2<<8|b3
-// (descriptor row 0 -> depth-4 state; row 1 -> length-4 pattern ID), then
-// steps two bytes at a time over depth-sliced exact tables: step s covers
-// depth d = 4 + 2s with rows 2+3s (main: state<<16|b1<<8|b2 -> next state),
-// 3+3s (odd: state<<8|b1 -> ID of a length-(d+1) pattern) and 4+3s (even:
-// the main key -> ID of a length-(d+2) pattern). A hit at depth d needs
-// n - p > d; the longest hit wins. The walk stops when the state is DEAD
-// (no table key carries the DEAD index, so nothing could hit again) or the
-// step has no main table.
+// The walk of a position p probes the BIG-endian entry key
+// b0<<24|b1<<16|b2<<8|b3 (descriptor row 0 -> depth-4 state; row 1 ->
+// length-4 pattern ID), then steps two bytes at a time over depth-sliced
+// exact tables: step s covers depth d = 4 + 2s with rows 2+3s (main:
+// state<<16|b1<<8|b2 -> next state), 3+3s (odd: state<<8|b1 -> ID of a
+// length-(d+1) pattern) and 4+3s (even: the main key -> ID of a
+// length-(d+2) pattern). A hit at depth d needs n - p > d; the longest hit
+// wins. The walk stops when the state is DEAD (no table key carries the
+// DEAD index, so nothing could hit again) or the step has no main table.
 //
 // The kernel writes out[p] only for a match of >= 4 bytes. The sieve
 // already wrote the exact depth-1..3 match at every position and a deeper
@@ -21,93 +20,264 @@
 // 128-byte row-gather windows, 32-way alignment and block halos are not
 // needed on this card.
 //
-// walk_kernel: one thread per survivor position (from the compaction, any
-// count, one launch). Bound: latency of dependent table loads (disp ->
-// key/value per probe, up to three probes per step), not bandwidth:
-// survivors are under 1e-3 of the positions on the traffic in PERF.md. The
-// tables (<= 6 MB by the tier gate) stay resident in the 50 MB L2; each
-// thread exits as soon as its state dies, so shallow survivors cost only
-// the entry probe.
+// Bound: the bytes are a survivor's position, its few bytes and its deep
+// match, well under a microsecond of device memory on any corpus here. Its
+// floor is the chain of the deepest walk: a step is two dependent loads (a
+// CHD's displacement, then its key and value) and the arithmetic between
+// them, and a warp steps as long as its deepest lane. Design:
+// * the survivor count stays on the device: the kernel reads it (the
+//   compaction's total) and the positions from a buffer that may be
+//   longer, so the host never waits for the count;
+// * a persistent grid, one CTA an SM at the Snort arena (the grid's size
+//   cached on the host, walk_common.cuh). Survivors are dealt round robin,
+//   in runs of 32 consecutive ones (a warp's), over as many CTAs as there
+//   are runs, at most the grid: a few thousand survivors still reach every
+//   SM, and where survivors are dense a warp's position loads and result
+//   stores coalesce. A CTA without a survivor returns before it stages
+//   anything;
+// * lanes that refill: a thread keeps its walk's position, step, state and
+//   match and 32 of its bytes; one iteration of its loop does one step (the
+//   entry probe counts as one), and a walk that ends writes its match and
+//   takes the lane's next survivor (a stride of the CTA's lanes) at once,
+//   its position loaded a walk ahead. Up to 1,024 lanes an SM, as many as
+//   have a survivor: the deepest walk's chain bounds the kernel, and the
+//   more warps an SM has, the more of its steps' latency they cover. (Fewer
+//   warps, each lane taking several survivors from a queue, ran slower: a
+//   refilled walk's first bytes come from device memory, and the whole
+//   warp waits for them.) The entry and a step have one shape, so lanes at
+//   different steps run the same instructions: a state probe on the key
+//   state<<16|two bytes (at the entry the first two bytes stand for the
+//   state, which makes the key b0..b3), a match probe on the same key
+//   (entry_final, even), and at a step the odd probe on its first three
+//   bytes; the three probes' slots are taken first, so a step is two
+//   dependent loads deep;
+// * the descriptor rows in shared memory, a row read as two 16-byte words;
+// * tables resident by depth: the arena is laid out in row order, and its
+//   first `resident` words (the longest prefix of whole tables that fits
+//   beside the descriptor rows, backends/walk.py::resident_words, down to
+//   none) arrive in shared memory by one bulk copy while each lane fetches
+//   its first survivor; a probe past the prefix reads L1/L2 (__ldg). A CTA
+//   with fewer than kStageMin survivors stages nothing of a split arena.
+//   One kernel for an arena resident whole, one for a split arena;
+// * a survivor's bytes by 16-byte loads from its aligned-down address, two
+//   chunks in registers, the next chunk loaded as the walk enters the
+//   second (walk_common.cuh::Bytes): no byte load on the dependent chain.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "probe.cuh"
+#include "walk_common.cuh"
 
 namespace {
 
 constexpr uint32_t kDead = 0xFFFFu;
-constexpr int kThreads = 128;
+constexpr int kThreads = 1024;
+constexpr int kHeader = 16;                   // the tables' mbarrier
+// A CTA with fewer survivors reads a split arena through L1/L2: staging it
+// (up to 227 KB) would take longer than its few walks.
+constexpr int32_t kStageMin = 256;
 
-// ID of the longest match of >= 4 bytes starting at p < n, else 0.
-__device__ __forceinline__ uint32_t walk_position(
-    const uint8_t* __restrict__ data, int32_t n, int32_t p,
-    const int32_t* __restrict__ arena, const int32_t* __restrict__ desc,
-    int32_t nsteps) {
-  const int32_t maxd = n - p;
-  if (maxd <= 3) return 0;
-  const uint8_t* __restrict__ s = data + p;
-  auto byte_at = [&](int32_t j) -> uint32_t {
-    return j < maxd ? static_cast<uint32_t>(__ldg(s + j)) : 0u;
-  };
-  const uint32_t key4 = (byte_at(0) << 24) | (byte_at(1) << 16) |
-                        (byte_at(2) << 8) | byte_at(3);
-  uint32_t v, match = 0, state = kDead;
-  const pfac::Probe entry = pfac::load_probe(desc, 0);
-  const pfac::Probe entry_final = pfac::load_probe(desc, 1);
-  if (pfac::probe_exact(arena, entry, key4, &v)) state = v;
-  if (entry_final.present && pfac::probe_exact(arena, entry_final, key4, &v))
-    match = v;
-  for (int32_t st = 0; st < nsteps && state != kDead; ++st) {
-    const int32_t d = 4 + 2 * st;
-    const pfac::Probe main = pfac::load_probe(desc, 2 + 3 * st);
-    const pfac::Probe odd = pfac::load_probe(desc, 3 + 3 * st);
-    const pfac::Probe even = pfac::load_probe(desc, 4 + 3 * st);
-    const uint32_t c1 = byte_at(d);
-    if (odd.present && maxd > d &&
-        pfac::probe_exact(arena, odd, (state << 8) | c1, &v))
-      match = v;
-    if (!main.present) break;
-    const uint32_t mkey = (state << 16) | (c1 << 8) | byte_at(d + 1);
-    uint32_t next;
-    const bool hit = maxd > d + 1 && pfac::probe_exact(arena, main, mkey, &next);
-    if (even.present && maxd > d + 1 &&
-        pfac::probe_exact(arena, even, mkey, &v))
-      match = v;
-    state = hit ? next : kDead;
-  }
-  return match;
+// Descriptor row `row` from shared memory, as two 16-byte words.
+__device__ __forceinline__ pfac::Probe row_probe(const int32_t* sdesc,
+                                                 int row) {
+  const int4* r = reinterpret_cast<const int4*>(sdesc + row * pfac::kDescWords);
+  const int4 u = r[0], v = r[1];
+  pfac::Probe p;
+  p.mul = static_cast<uint32_t>(u.x);
+  p.lg_b = u.y;
+  p.lg_r = u.z;
+  p.disp_off = u.w;
+  p.key_off = v.x;
+  p.val_off = v.y;
+  p.present = v.z;
+  return p;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Bytes o and o + 1 of the window as (byte o) << 8 | byte o + 1.
+__device__ __forceinline__ uint32_t pair_be(const pfac::Bytes& w, uint32_t o) {
+  return __byte_perm(w.word_le(o), 0, 0x4401);
+}
+
+// Dynamic shared memory, in this order (backends/walk.py::fixed_smem_bytes
+// repeats it): [kHeader: mbarrier][2 + 3 * nsteps descriptor rows]
+// [resident arena words]. kAllResident: `resident` covers the whole arena.
+template <bool kAllResident>
+__global__ void __launch_bounds__(kThreads, 1)
 walk_kernel(const uint8_t* __restrict__ data, int32_t n,
-            const int32_t* __restrict__ pos, int32_t count,
-            const int32_t* __restrict__ arena,
+            const int32_t* __restrict__ pos, const int32_t* __restrict__ count,
+            int32_t cap, const int32_t* __restrict__ arena, int32_t resident,
             const int32_t* __restrict__ desc, int32_t nsteps,
             int32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const int32_t p = __ldg(pos + i);
-  const uint32_t match = walk_position(data, n, p, arena, desc, nsteps);
-  if (match != 0) out[p] = static_cast<int32_t>(match);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int32_t total = pfac::survivors(count, cap);
+  const int32_t runs = (total + 31) / 32;      // of 32 consecutive survivors
+  const int32_t ctas = min(static_cast<int32_t>(gridDim.x), runs);
+  const int32_t bid = static_cast<int32_t>(blockIdx.x);
+  if (bid >= ctas) return;                      // uniform across the CTA
+  // this CTA's survivors: runs bid, bid + ctas, ...; its k-th is survivor
+  // at(k), and lane tid walks k = tid, tid + kThreads, ..., so a warp walks
+  // 32 consecutive survivors (its position loads and result stores
+  // coalesce where survivors are dense)
+  const int32_t mine = (runs - bid + ctas - 1) / ctas * 32;
+  auto at = [&](int32_t k) { return (bid + (k >> 5) * ctas) * 32 + (k & 31); };
+  auto has = [&](int32_t k) { return k < mine && at(k) < total; };
+  if (!kAllResident && mine < kStageMin) resident = 0;
+  const int tid = threadIdx.x;
+  const int32_t nrows = 2 + 3 * nsteps;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int32_t* sdesc = reinterpret_cast<int32_t*>(smem + kHeader);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(sdesc + nrows * pfac::kDescWords);
+
+  // 1. the tables and descriptors on their way
+  if (tid == 0) {
+    pfac::mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int32_t bulk_words = resident & ~3;
+  if (tid == 0 && bulk_words > 0) {
+    pfac::mbar_expect(bar, 4u * bulk_words);
+    pfac::bulk_copy(tab, arena, 4u * bulk_words, bar);
+  }
+  for (int32_t q = bulk_words + tid; q < resident; q += kThreads)
+    tab[q] = static_cast<uint32_t>(__ldg(arena + q));
+  for (int32_t q = tid; q < nrows * pfac::kDescWords; q += kThreads)
+    sdesc[q] = __ldg(desc + q);
+
+  // 2. the lane's first survivor, in flight while the tables arrive;
+  // p_next is the one after the current, loaded a walk ahead
+  const uint8_t* end = data + n;
+  pfac::Bytes w;
+  int32_t k = tid, p = 0, p_next = 0, rd = 0, t = 0;
+  uint32_t state = 0, match = 0;
+  auto begin = [&]() {                          // walk survivor at(k) from p
+    w.start(data + p, end);
+    rd = n - p;
+    t = 0;
+    match = 0;
+    state = pair_be(w, static_cast<uint32_t>((data + p) - w.at));
+    if (has(k + kThreads)) p_next = __ldg(pos + at(k + kThreads));
+  };
+  if (has(k)) {
+    p = __ldg(pos + at(k));
+    begin();
+  }
+  __syncthreads();                              // sdesc, tab's last words
+  if (!has(k)) return;                          // after the CTA's last barrier
+  if (bulk_words > 0) pfac::mbar_wait(bar, 0);
+  using Tab = std::conditional_t<kAllResident, pfac::SmemTab, pfac::SplitTab>;
+  Tab tb;
+  if constexpr (kAllResident) tb = Tab{tab};
+  else tb = Tab{tab, arena, static_cast<uint32_t>(resident)};
+
+  // 3. one step of the lane's walk an iteration. t == 0 is the entry
+  // (rows 0, 1; bytes 2, 3 after the two standing in for the state);
+  // t >= 1 is step t - 1 (main 3t - 1, odd 3t, even 3t + 1; depth d)
+  for (;;) {
+    const int32_t d = 2 + 2 * t;
+    const int srow = t == 0 ? 0 : 3 * t - 1;
+    const pfac::Probe sp = row_probe(sdesc, srow);
+    const pfac::Probe op = row_probe(sdesc, srow + 1);
+    const pfac::Probe ep = row_probe(sdesc, t == 0 ? 1 : srow + 2);
+    const uint32_t o = w.seek(data + p + d, end);
+    const uint32_t mkey = (state << 16) | pair_be(w, o);
+    const uint32_t okey = mkey >> 8;            // state << 8 | byte d
+    const bool s_on = t == 0 || sp.present;     // the entry row always
+    const bool o_on = t > 0 && op.present;
+    const bool e_on = s_on && ep.present;       // no main: the walk ends
+    uint32_t ss = 0, so = 0, se = 0;
+    if (s_on) ss = pfac::probe_slot(tb, sp, mkey);
+    if (o_on) so = pfac::probe_slot(tb, op, okey);
+    if (e_on) se = pfac::probe_slot(tb, ep, mkey);
+    uint32_t ks = 0, vs = 0, ko = 0, vo = 0, ke = 0, ve = 0;
+    if (s_on) {
+      ks = tb[sp.key_off + ss];
+      vs = tb[sp.val_off + ss];
+    }
+    if (o_on) {
+      ko = tb[op.key_off + so];
+      vo = tb[op.val_off + so];
+    }
+    if (e_on) {
+      ke = tb[ep.key_off + se];
+      ve = tb[ep.val_off + se];
+    }
+    if (o_on && rd > d && ko == okey) match = vo;
+    if (e_on && rd > d + 1 && ke == mkey) match = ve;
+    const bool alive = s_on && rd > d + 1 && ks == mkey;
+    state = alive ? vs : kDead;
+    ++t;
+    if (!alive || t > nsteps) {                 // the walk ends
+      if (match != 0) out[p] = static_cast<int32_t>(match);
+      k += kThreads;
+      if (!has(k)) break;
+      p = p_next;
+      begin();
+    }
+  }
+}
+
+int64_t smem_bytes(int32_t nsteps, int32_t resident) {
+  return kHeader + 4LL * pfac::kDescWords * (2 + 3 * nsteps) + 4LL * resident;
+}
+
+const void* kernel_of(bool all) {
+  return all ? (const void*)walk_kernel<true>
+             : (const void*)walk_kernel<false>;
 }
 
 }  // namespace
 
-// data: uint8[>= n]; pos: int32[count], each < n; out: int32[>= n].
-// Launches on `stream`; returns cudaGetLastError().
+// data: uint8[>= n], any alignment; pos: int32[cap], the first
+// min(*count, cap) of them walked (count: a device int32, or null for all
+// cap), each < n; out: int32[>= n]; arena: int32[words], 16-byte aligned,
+// its first `resident` words (any prefix, 0 included) staged in shared
+// memory; desc: 2 + 3 * nsteps rows. Else cudaErrorInvalidValue; a prefix
+// that does not fit shared memory fails the launch. Launches once on
+// `stream`, whatever the count; returns the launch's cudaError_t.
 extern "C" int pfac_walk(int device, const void* data, int32_t n,
-                         const void* pos, int32_t count, const void* arena,
+                         const void* pos, const void* count, int32_t cap,
+                         const void* arena, int32_t words, int32_t resident,
                          const void* desc, int32_t nsteps, void* out,
                          void* stream) {
+  if (n < 0 || cap < 0 || nsteps < 0 || resident < 0 || resident > words ||
+      reinterpret_cast<uintptr_t>(arena) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (count <= 0) return 0;
-  const int64_t blocks = (static_cast<int64_t>(count) + kThreads - 1) / kThreads;
-  walk_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, static_cast<const int32_t*>(pos),
-      count, static_cast<const int32_t*>(arena),
-      static_cast<const int32_t*>(desc), nsteps, static_cast<int32_t*>(out));
+  const bool all = resident == words;
+  const int64_t smem = smem_bytes(nsteps, resident);
+  int64_t grid;
+  err = pfac::persistent_grid(kernel_of(all), kThreads, device, smem, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* ps = static_cast<const int32_t*>(pos);
+  const auto* c = static_cast<const int32_t*>(count);
+  const auto* a = static_cast<const int32_t*>(arena);
+  const auto* ds = static_cast<const int32_t*>(desc);
+  auto* o = static_cast<int32_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (all)
+    walk_kernel<true><<<g, kThreads, smem, st>>>(d, n, ps, c, cap, a, resident,
+                                                 ds, nsteps, o);
+  else
+    walk_kernel<false><<<g, kThreads, smem, st>>>(d, n, ps, c, cap, a,
+                                                  resident, ds, nsteps, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent grid pfac_walk launches for these tables into *grid
+// (int64). Returns a cudaError_t.
+extern "C" int pfac_walk_grid(int device, int32_t nsteps, int32_t resident,
+                              int32_t words, void* grid) {
+  if (nsteps < 0 || resident < 0 || resident > words)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(pfac::persistent_grid(
+      kernel_of(resident == words), kThreads, device,
+      smem_bytes(nsteps, resident), static_cast<int64_t*>(grid)));
 }

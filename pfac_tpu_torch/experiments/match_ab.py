@@ -11,7 +11,9 @@ checkout's ``rulesets.py``, loaded by path, so every tree sees the same
 bytes), and prints per corpus one JSON line: the CUDA-event median of a warm
 ``Matcher(device="cuda").match_device`` call (10 calls after 2 warm-up
 calls), GB/s, a fingerprint of the result, the torch.profiler device time
-of a launch of each kernel (median over 5 calls), and the card's clocks,
+of a launch of each kernel (median over 5 calls), the device's busy share
+of the call (``busy_ms``, the sum of those kernel times, over the e2e
+median: ``busy_share``; no kernel runs twice in a call), and the card's clocks,
 power and temperature right after (nvidia-smi); on the walk-table tier
 also K3 alone on the corpus's sieve counts (``k3_batched_ms``: the
 CUDA-event median over batches of 10 ``block_walk`` calls, so the card's
@@ -157,9 +159,12 @@ def worker(tree: str) -> int:
         fingerprint = [int((ids > 0).sum()), int((ids * (pos % 65521)).sum())]
         ms = _ms(lambda: mt.match_device(d))
         kernels = _kernels(lambda: mt.match_device(d))
+        busy = sum(kernels.values())
         print(json.dumps({"tree": tree, "corpus": name, "ms": ms,
                           "GB/s": host.shape[0] / ms / 1e6,
                           "fingerprint": fingerprint, "device_ms": kernels,
+                          "busy_ms": round(busy, 4),
+                          "busy_share": round(busy / ms, 4),
                           "k3_batched_ms": _k3_batched(mt, d),
                           "clocks": _clocks()}), flush=True)
         del d, res, ids, pos

@@ -33,8 +33,9 @@ def _tiles_result(m, data: bytes, n: int, block: int):
     block_walk.block_walk_plain(t, n, counts, whole, eng._walk)
     block_walk.block_walk_tiles_plain(t, n, counts, tiled, eng._walk)
     assert torch.equal(whole, tiled)
-    pos = compact.compact(bits, counts, block // block_walk.DENSE_ESCAPE_DIV)
-    walk.walk(t, n, pos, tiled, eng._walk)
+    pos, count = compact.compact(bits, counts,
+                                 block // block_walk.DENSE_ESCAPE_DIV)
+    walk.walk(t, n, pos, tiled, eng._walk, count)
     assert not tiled[n:].any()
     return tiled[:n].numpy(), len(block_walk.dense_tiles(n, counts, block))
 
@@ -143,13 +144,74 @@ def test_resident_words_whole_arena_for_aaaa():
 
 
 def test_resident_words_raises_when_entry_does_not_fit():
+    # the prefix shrinks table by table to the entry table, then to none;
+    # the kernels read the rest through L1/L2
     tabs = _snort_walk()
-    entry_end = block_walk.table_ends(tabs)[1]      # entry and entry_final
+    ends = block_walk.table_ends(tabs)
+    entry_end = ends[1]                             # entry and entry_final
     assert block_walk.resident_words(tabs, 4 * entry_end) == entry_end
-    with pytest.raises(ValueError, match="entry tables"):
-        block_walk.resident_words(tabs, 4 * entry_end - 1)
-    with pytest.raises(ValueError, match="entry tables"):
-        block_walk.resident_words(tabs, -5000)
+    assert block_walk.resident_words(tabs, 4 * entry_end - 1) == ends[0]
+    assert block_walk.resident_words(tabs, 4 * ends[0]) == ends[0]
+    for budget in (4 * ends[0] - 1, 4, 3, 0):
+        assert block_walk.resident_words(tabs, budget) == 0
+    with pytest.raises(ValueError, match="negative"):
+        block_walk.resident_words(tabs, -5000)      # the fixed part does not fit
+
+
+def _f1_patterns(extra=()):
+    """The ruleset of ROADMAP.md's fault F1: 17,000 random 6-byte patterns
+    (seed 17000), on the walk-table tier, whose entry tables alone outgrow
+    the shared memory K2 and K3 have for tables."""
+    rng = np.random.default_rng(17000)
+    return [bytes(rng.integers(0, 256, size=6, dtype=np.uint8))
+            for _ in range(17000)] + list(extra)
+
+
+def test_f1_plans_fit_on_132_sms(monkeypatch):
+    # K3's and K2's plans at 128 MB on a 132-SM card: nothing of the arena
+    # resident, every table read through L1/L2, and no raise
+    eng = pt.Matcher(_f1_patterns(), device="cpu")._engine()
+    tabs = eng._walk
+    assert tabs is not None and eng.walk_tables.vmem_bytes <= 6 << 20
+    assert 4 * block_walk.table_ends(tabs)[0] > sieve.SMEM_LIMIT
+    nsteps = block_walk.steps_of(tabs)
+    ntiles = npad_for(128 << 20) // CHUNK
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    dev = torch.device("cuda", 0)
+    k3 = block_walk.launch_plan(tabs, ntiles, dev)
+    assert k3 == (nsteps, block_walk.lookahead(nsteps),
+                  block_walk.tile_cap(ntiles, 132), 0)
+    assert block_walk.fixed_smem_bytes(nsteps, k3[2]) <= sieve.SMEM_LIMIT
+    k2 = walk.launch_plan(tabs, dev)
+    assert k2 == (nsteps, 0)
+    assert walk.fixed_smem_bytes(nsteps) <= sieve.SMEM_LIMIT
+
+
+def test_f1_ruleset_vs_golden():
+    # the F1 ruleset (and zzzz, for a dense block) on 64 KB with planted
+    # patterns: the port's CPU match against the reference's golden model
+    pats = _f1_patterns([b"zzzz", b"zzzzzzzz"])
+    rng = np.random.default_rng(3)
+    d = rng.integers(0, 256, size=1 << 16, dtype=np.uint8)
+    d[2 * CHUNK:3 * CHUNK] = ord("z")
+    for off in range(0, d.shape[0] - 8, 97):
+        p = pats[int(rng.integers(0, len(pats)))]
+        d[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    m = pt.Matcher(pats, device="cpu", tile=CHUNK)
+    eng = m._engine()
+    assert eng._walk is not None
+    got = m.match(d.tobytes())
+    assert got.tolist() == golden.match_edges_batch(m.automaton,
+                                                    d.tobytes()).tolist()
+    assert (got > 0).sum() > 600
+    _, _, counts = sieve.sieve(torch.from_numpy(d), d.shape[0], 1 << 16,
+                               eng._sieve, CHUNK)
+    assert block_walk.escaped_blocks(counts, 1 << 16) == 1
 
 
 def test_tier_gate_keeps_k3_within_shared_memory():

@@ -33,8 +33,10 @@ def _want(flags: np.ndarray, thresh: int, block: int = BLOCK) -> list[int]:
 
 def _check(flags: np.ndarray, thresh: int, block: int = BLOCK) -> list[int]:
     bits, counts = _bits(flags), _counts(flags, block)
-    got = compact.compact(bits, counts, thresh)
-    assert got.dtype == torch.int32
+    got, count = compact.compact(bits, counts, thresh)
+    assert got.dtype == count.dtype == torch.int32
+    assert count.shape == (1,) and int(count) == got.numel()
+    assert got.numel() <= compact.capacity(counts.numel(), block, thresh)
     assert got.tolist() == _want(flags, thresh, block)
     assert torch.equal(sieve.pack_bits(torch.from_numpy(flags)), bits)
     return got.tolist()
@@ -61,7 +63,8 @@ def test_n_not_a_multiple_of_32(n):
     npad = npad_for(n, eng.tile_rows)
     data = torch.full((n,), ord("a"), dtype=torch.uint8)
     _, bits, counts = sieve.sieve(data, n, npad, eng._sieve, BLOCK)
-    pos = compact.compact(bits, counts, BLOCK + 1)
+    pos, count = compact.compact(bits, counts, BLOCK + 1)
+    assert int(count) == pos.numel()
     assert pos.tolist() == list(range(max(n - 3, 0)))
     flags = np.unpackbits(bits.numpy().view(np.uint8), bitorder="little")
     assert pos.tolist() == _want(flags, BLOCK + 1)
@@ -107,3 +110,34 @@ def test_larger_blocks_and_bad_shapes():
                 torch.zeros(16, dtype=torch.int32), counts.long()):
         with pytest.raises(ValueError):  # no whole number of blocks, a
             compact.compact(bits, bad, block // 4)  # block of 6,144, int64
+
+
+def test_capacity_of_both_tiers():
+    # 128 MB in 64K blocks: with the escape armed (walk-table tier) a listed
+    # block holds at most thresh - 1 survivors; disarmed (CSR tier) the
+    # buffer is npad positions
+    block = 65536
+    nblocks = npad_for(128 << 20) // block
+    assert nblocks == 2048
+    assert compact.capacity(nblocks, block, block // 4) == 2048 * 16383
+    assert 4 * compact.capacity(nblocks, block, block // 4) == 134_209_536
+    assert compact.capacity(nblocks, block, block + 1) == nblocks * block
+    assert compact.capacity(nblocks, block, 1) == 0    # every block left out
+    assert compact.capacity(0, block, block // 4) == 0
+
+
+@pytest.mark.parametrize("armed", [True, False])
+def test_capacity_holds_full_blocks_and_a_cut_last_block(armed):
+    # every listed block at its most survivors, and n cutting the last
+    # block (its survivors stop 3 positions before n): all fit the buffer
+    thresh = BLOCK // 4 if armed else BLOCK + 1
+    most = min(thresh - 1, BLOCK)
+    rng = np.random.default_rng(int(armed))
+    flags = np.zeros(4 * BLOCK, np.uint8)
+    for b in range(3):
+        flags[b * BLOCK + rng.choice(BLOCK, most, replace=False)] = 1
+    n = 3 * BLOCK + 1000
+    flags[3 * BLOCK:n - 3] = 1
+    got = _check(flags, thresh)
+    assert len(got) == 3 * most + 997
+    assert compact.capacity(4, BLOCK, thresh) - len(got) == most - 997

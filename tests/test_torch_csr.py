@@ -104,6 +104,46 @@ def test_plain_walk_equals_oracle(name):
         assert any(want)
 
 
+@pytest.mark.parametrize("count", [0, 1, 6, 50])
+def test_positions_past_the_count_are_not_walked(count):
+    # the pipeline's contract: `pos` is a buffer longer than the survivors,
+    # their number a 1-element tensor; the buffer's words past the count are
+    # positions < n that would match, and must not be walked
+    pats = RULESETS["deep_stages"]
+    data = _corpus(pats, seed=3)
+    n = len(data)
+    a = Automaton.from_patterns(pats)
+    tabs = build_csr_tables(a).to_device("cpu")
+    ref = xla_csr.build_csr_tables(a)
+    starts = [p for p in range(n) if xla_csr.csr_oracle_walk(ref, data, p, n)]
+    assert len(starts) >= 12
+    rng = np.random.default_rng(count)
+    pos = torch.tensor(rng.permutation(starts)[:12], dtype=torch.int32)
+    t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    out = torch.zeros(n, dtype=torch.int32)
+    csr_walk.csr_walk(t, n, pos, out, tabs,
+                      torch.tensor([count], dtype=torch.int32))
+    want = torch.zeros(n, dtype=torch.int32)
+    csr_walk.csr_walk_plain(t, n, pos[:count].clone(), want, tabs)
+    assert torch.equal(out, want)
+    assert int((out != 0).sum()) == min(count, pos.numel())
+
+
+def test_entry_rows_padded_to_whole_vectors():
+    # the device layout pads a bucket row to a width that is a multiple of
+    # 4 with empty triples, so every row loads as whole 16-byte vectors
+    a = Automaton.from_patterns(RULESETS["parity_random"])
+    ct = build_csr_tables(a)
+    packed = ct.to_device("cpu")
+    width = packed.rows[0][2]
+    assert width % 4 == 0 and 0 <= width - ct.entry_width < 4
+    nb = ct.entry_rows.shape[0]
+    entry = packed.arena[:nb * 3 * width].view(nb, 3 * width).numpy()
+    assert np.array_equal(entry[:, :3 * ct.entry_width], ct.entry_rows)
+    assert not entry[:, 3 * ct.entry_width:].any()
+    assert all(off % 4 == 0 for off, *_ in packed.rows[1:])
+
+
 def _csr_matchers(pats, monkeypatch):
     """Both packages' matchers with the walk tables forced off."""
     monkeypatch.setattr(S, "build_walk_tables_gated", lambda *a: None)

@@ -57,11 +57,12 @@ def test_kernels_match_plain(dev, n):
     mk, bk, ck = sieve.sieve(data, n, npad, eng._sieve)
     mp, bp, cp = sieve.sieve_plain(data, n, npad, eng._sieve)
     assert torch.equal(mk, mp) and torch.equal(bk, bp) and torch.equal(ck, cp)
-    pos = compact.compact(bk, ck, sieve.BLOCK + 1)
-    assert torch.equal(pos, compact.compact_plain(bp, cp, sieve.BLOCK + 1))
+    pos, count = compact.compact(bk, ck, sieve.BLOCK + 1)
+    exact = compact.compact_plain(bp, cp, sieve.BLOCK + 1)
+    assert torch.equal(pos[:int(count)], exact)
     out_k, out_p = mk.clone(), mk.clone()
-    walk.walk(data, n, pos, out_k, eng._walk)
-    walk.walk_plain(data, n, pos, out_p, eng._walk)
+    walk.walk(data, n, pos, out_k, eng._walk, count)
+    walk.walk_plain(data, n, exact, out_p, eng._walk)
     torch.cuda.synchronize()
     assert torch.equal(out_k, out_p)
     res = m.match_device(data)
@@ -134,7 +135,8 @@ def test_block_walk_matches_plain(dev, n, block):
     torch.cuda.synchronize()
     assert torch.equal(mk, match) and torch.equal(mt, match)
     thresh = block // block_walk.DENSE_ESCAPE_DIV
-    assert torch.equal(compact.compact(bits, counts, thresh),
+    pos, count = compact.compact(bits, counts, thresh)
+    assert torch.equal(pos[:int(count)],
                        compact.compact_plain(bits, counts, thresh))
     res = m.match_device(data)
     assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
@@ -249,17 +251,17 @@ def test_csr_tier_on_card(dev, n):
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
     match, bits, counts = sieve.sieve(data, n, npad, eng._sieve)
-    pos = compact.compact(bits, counts, sieve.BLOCK + 1)
+    pos, count = compact.compact(bits, counts, sieve.BLOCK + 1)
     out_k, out_p = match.clone(), match.clone()
-    csr_walk.csr_walk(data, n, pos, out_k, eng._csr)
-    csr_walk.csr_walk_plain(data, n, pos, out_p, eng._csr)
+    csr_walk.csr_walk(data, n, pos, out_k, eng._csr, count)
+    csr_walk.csr_walk_plain(data, n, pos, out_p, eng._csr, count)
     torch.cuda.synchronize()
     assert torch.equal(out_k, out_p)
     _zero(sieve.LAUNCHES)
     csr_walk.LAUNCHES = block_walk.LAUNCHES = 0
     res = m.match_device(data)
     assert sum(sieve.LAUNCHES.values()) == 1 and block_walk.LAUNCHES == 0
-    assert csr_walk.LAUNCHES == (1 if pos.numel() else 0)
+    assert csr_walk.LAUNCHES == 1          # whatever the survivor count
     assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, None,
                                          eng._csr, plain=True))
     assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
@@ -331,10 +333,143 @@ def test_compact_kernel_matches_plain(dev, density, block):
     counts = flags.view(-1, block).sum(1, dtype=torch.int32)
     for thresh in (block // 4, block + 1, 1):
         _zero(compact.LAUNCHES)
-        got = compact.compact(bits, counts, thresh)
+        got, count = compact.compact(bits, counts, thresh)
         assert compact.LAUNCHES == {"compact_scan_kernel": 1,
                                     "compact_kernel": 1}
-        assert torch.equal(got, compact.compact_plain(bits, counts, thresh))
+        assert got.numel() == compact.capacity(counts.numel(), block, thresh)
+        assert torch.equal(got[:int(count)],
+                           compact.compact_plain(bits, counts, thresh))
+
+
+def _count_cases(dev, pos: torch.Tensor):
+    """(name, buffer, count) cases of the walkers' contract: the buffer
+    whole, a buffer longer than the count whose words past it are
+    positions < n that would match (they must not be walked), and a count
+    of 0."""
+    half = pos.numel() // 2
+    assert half > 0
+    one = lambda k: torch.tensor([k], dtype=torch.int32, device=dev)
+    return [("whole", pos, None), ("past the count", pos, one(half)),
+            ("count 0", pos, one(0))]
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_walkers_count_contract(dev, offset):
+    # K2 and the CSR walk on the card against their plain versions on the
+    # exact positions, from a data view at `offset`
+    for pats, rng in (_ruleset(21), _csr_ruleset()):
+        eng = pt.Matcher(pats, device=dev)._engine()
+        n = 300_001
+        host = _corpus(rng, pats, n + offset)
+        data = torch.from_numpy(host).to(dev)[offset:]
+        match, bits, counts = sieve.sieve(data, n, npad_for(n), eng._sieve)
+        pos, count = compact.compact(bits, counts, sieve.BLOCK + 1)
+        pos = pos[:int(count)].flip(0).contiguous()   # any order
+        fn = walk if eng._walk is not None else csr_walk
+        run, plain = ((walk.walk, walk.walk_plain) if fn is walk
+                      else (csr_walk.csr_walk, csr_walk.csr_walk_plain))
+        tabs = eng._walk if fn is walk else eng._csr
+        for name, buf, cnt in _count_cases(dev, pos):
+            fn.LAUNCHES = 0
+            out_k, out_p = match.clone(), match.clone()
+            run(data, n, buf, out_k, tabs, cnt)
+            k = buf.numel() if cnt is None else int(cnt)
+            plain(data, n, buf[:k].clone(), out_p, tabs)
+            torch.cuda.synchronize()
+            assert fn.LAUNCHES == 1, name
+            assert torch.equal(out_k, out_p), name
+            assert (k == 0) == torch.equal(out_k, match), name
+
+
+@pytest.mark.parametrize("which", ["none", "entry", "plan", "all"])
+def test_walk_resident_prefixes(dev, which, monkeypatch):
+    # K2 with none, the entry tables, the plan's prefix and the whole arena
+    # in shared memory (the Snort arena does not fit whole: a small one)
+    pats = (_ruleset(4)[0] if which == "all"
+            else rulesets.snort_like_patterns())
+    eng = pt.Matcher(pats, device=dev)._engine()
+    tabs = eng._walk
+    nsteps, planned = walk.launch_plan(tabs, dev)
+    words = tabs.arena.numel()
+    resident = {"none": 0, "entry": walk.table_ends(tabs)[1],
+                "plan": planned, "all": words}[which]
+    assert (planned == words) == (which == "all")
+    assert which != "plan" or 0 < planned < words
+    monkeypatch.setattr(walk, "launch_plan", lambda t, d: (nsteps, resident))
+    rng = np.random.default_rng(8)
+    n = 4 << 20
+    data = torch.from_numpy(rulesets.planted_text(rng, pats, n, 0.5)).to(dev)
+    match, bits, counts = sieve.sieve(data, n, npad_for(n), eng._sieve)
+    exact = compact.compact_plain(bits, counts, sieve.BLOCK + 1)
+    # enough survivors that every CTA stages its prefix (kStageMin = 256 a
+    # CTA in csrc/walk.cu; fewer are walked from L1/L2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert exact.numel() >= 256 * sms
+    out_k, out_p = match.clone(), match.clone()
+    walk.walk(data, n, exact, out_k, tabs)
+    walk.walk_plain(data, n, exact, out_p, tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and not torch.equal(out_k, match)
+
+
+def _f1_patterns():
+    """ROADMAP.md's F1 ruleset (17,000 random 6-byte patterns, seed 17000)
+    and zzzz, zzzzzzzz for a dense block: its entry tables do not fit the
+    walk kernels' shared memory."""
+    rng = np.random.default_rng(17000)
+    return [bytes(rng.integers(0, 256, size=6, dtype=np.uint8))
+            for _ in range(17000)] + [b"zzzz", b"zzzzzzzz"]
+
+
+def test_f1_entry_tables_beyond_shared_memory(dev):
+    pats = _f1_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    n = (3 << 20) + 777
+    host = rulesets.mixed_density(np.random.default_rng(17), pats, n,
+                                  sieve.BLOCK)
+    data = torch.from_numpy(host).to(dev)
+    npad = npad_for(n)
+    assert walk.launch_plan(eng._walk, dev)[1] == 0
+    assert block_walk.launch_plan(eng._walk, npad // block_walk.CHUNK,
+                                  dev)[3] == 0
+    esc, _ = _k3_equal(data, n, eng)
+    assert esc >= 1
+    res = m.match_device(data)
+    assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, eng._walk,
+                                         plain=True))
+    assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
+        m.automaton, host).tolist()
+
+
+def test_block_walk_resident_zero(dev, monkeypatch):
+    # K3 with nothing of the arena in shared memory: no bulk copy, no wait
+    pats = rulesets.snort_like_patterns() + [b"zzzz", b"zzzzzzzz"]
+    eng = pt.Matcher(pats, device=dev)._engine()
+    real = block_walk.launch_plan
+    monkeypatch.setattr(block_walk, "launch_plan",
+                        lambda *a: real(*a)[:3] + (0,))
+    n = (2 << 20) + 5
+    host = rulesets.mixed_density(np.random.default_rng(9), pats, n,
+                                  sieve.BLOCK)
+    esc, _ = _k3_equal(torch.from_numpy(host).to(dev), n, eng)
+    assert esc >= 1
+
+
+def test_match_device_does_not_synchronize(dev):
+    # no host round trip on either tier: a synchronising call raises
+    cases = [(_ruleset(31), 4 << 20), (_csr_ruleset(), 4 << 20)]
+    for (pats, rng), n in cases:
+        m = pt.Matcher(pats, device=dev)
+        data = torch.from_numpy(_corpus(rng, pats, n)).to(dev)
+        want = m.match_device(data)             # warm: tables, plans, cache
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = m.match_device(data)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want)
 
 
 def _words(dev, w: int, n: int, seed: int):

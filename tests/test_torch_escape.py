@@ -139,7 +139,7 @@ def test_block_walk_plain_clears_only_dense_blocks():
     thresh = BLOCK // block_walk.DENSE_ESCAPE_DIV
     dense = counts >= thresh
     flags = sieve.unpack_bits(bits).view(-1, BLOCK)
-    pos = compact.compact(bits, counts, thresh)
+    pos, _ = compact.compact(bits, counts, thresh)
     assert not bool(dense[pos.long() // BLOCK].any())
     want = torch.nonzero(flags[~dense].reshape(-1)).reshape(-1)
     keep = torch.nonzero(~dense).reshape(-1)

@@ -95,3 +95,30 @@ def test_random(seed):
     pats.append(bytes(alpha[rng.integers(0, 3, size=7)]))
     data = bytes(alpha[rng.integers(0, 3, size=300)])
     _compare(pats, data)
+
+
+@pytest.mark.parametrize("count", [0, 1, 5, 9, 40])
+def test_positions_past_the_count_are_not_walked(count):
+    # the pipeline's contract: `pos` is a buffer longer than the survivors,
+    # their number a 1-element tensor; the buffer's words past the count are
+    # positions < n that would match, and must not be walked. A count past
+    # the buffer walks all of it.
+    pats = [b"abcd", b"abcdef", b"zzzz", b"zzzzzz"]
+    data = b"xabcdefzzzzzzabcd" * 3
+    n = len(data)
+    wt = build_walk_tables(Automaton.from_patterns(pats)).to_device("cpu")
+    t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    starts = [p for p in range(n)
+              if walk_oracle(build_walk_tables(Automaton.from_patterns(pats)),
+                             data, p, n)]
+    rng = np.random.default_rng(count)
+    pos = torch.tensor(rng.permutation(starts), dtype=torch.int32)
+    assert pos.numel() == 15
+    out = torch.zeros(n, dtype=torch.int32)
+    walk.walk(t, n, pos, out, wt, torch.tensor([count], dtype=torch.int32))
+    want = torch.zeros(n, dtype=torch.int32)
+    walk.walk_plain(t, n, pos[:count].clone(), want, wt)
+    assert torch.equal(out, want)
+    assert int((out > 0).sum()) == min(count, pos.numel())
+    with pytest.raises(ValueError, match="count"):
+        walk.walk(t, n, pos, out, wt, torch.tensor([count]))   # int64
