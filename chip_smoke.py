@@ -68,10 +68,27 @@ Phases, each on lines of its own:
    ``time`` line per case (with ``torch.take`` / ``torch.gather`` beside
    G1 / G2; E5's shapes also on the path the rule did not pick), and for
    the launch-bound G2 cases the card's own time of the kernel and of
-   ``torch.gather``'s (torch.profiler).
+   ``torch.gather``'s (torch.profiler), and the same for G1 on E1 C/D, E2
+   and the E6 planes (beside ``torch.take``'s) and for G4 on E4;
+10. the lockstep walker (``backends/xla.py``): every tier that takes it
+   (``Backend.XLA`` dense and hash, ``PlacementMode.HBM``, and the fallback
+   from a sieve-table budget patched to 0 in this process; ``Backend.PALLAS``
+   over that budget raises) over the Snort set on 16 MB of the random and
+   DEFCON-like corpora, and the 100K ruleset in dense mode on 4 MB of its
+   corpus (its hash tables are refused, as in the reference), each equal to
+   the sieve engine on the same bytes and to the golden model, with e2e
+   times and table bytes; the device reduce (``match_reduce_device``) on
+   every corpus of phase 6, launch counts reset just before it, under
+   ``torch.cuda.set_sync_debug_mode("error")``: reduce_flags_kernel and both
+   compaction kernels launched, each result equal to the plain reduce, its
+   times against its bound and ``torch.nonzero(result > 0)``; the C-style
+   API's ``PFAC_matchFromDevice`` / ``PFAC_matchFromDeviceReduce`` on CUDA
+   tensors; ``tools/device_fuzz`` on two cases of each kind under a time
+   cap.
 
-Then one JSON line of per-kernel results (every kernel of the main path and
-G1-G4, each with its bound and library time), and last
+Then one JSON line of per-kernel results (every kernel of the main path,
+reduce_flags_kernel with its launches on the reduce path, and G1-G4, each
+with its bound and library time), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
 Integer IDs and positions are compared exactly (tolerance 0). A bound is
@@ -199,6 +216,199 @@ def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
     dt = time.perf_counter() - t0
     print(f"golden {name}: {off / MB:.0f} MB equal to match_edges_batch "
           f"({dt:.1f} s, {off / MB / dt:.2f} MB/s on the host)")
+
+
+def lockstep_phase(dev, name_limit, a, m, snort, big) -> None:
+    """Phase 10a: the lockstep walker (``backends/xla.py``) on the card.
+    Every tier that takes it (Backend.XLA dense and hash,
+    PlacementMode.HBM, and the fallback from a sieve-table budget patched
+    to 0) over the Snort set on SLICE bytes of each of `snort`'s corpora,
+    and the 100K ruleset on BIG_SLICE bytes of its corpus (`big`: automaton,
+    sieve engine's Matcher, device corpus, host corpus); each result equal
+    to the sieve engine's on the same bytes and to the golden model, with
+    its e2e time and table bytes."""
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch.backends import sieve_matcher
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    from pfac_tpu_torch.experiments.gathers import cuda_ms
+
+    tiers = {"Backend.XLA dense": dict(backend="xla"),
+             "Backend.XLA hash": dict(backend="xla", perf_mode="hash"),
+             "PlacementMode.HBM": dict(placement="hbm")}
+    walkers = {k: pt.Matcher(automaton=a, device=dev, **kw)
+               for k, kw in tiers.items()}
+    budget = sieve_matcher._VMEM_TABLE_BUDGET
+    sieve_matcher._VMEM_TABLE_BUDGET = 0      # every sieve table is over it
+    try:
+        fb = pt.Matcher(automaton=a, device=dev)
+        walkers["sieve tables over budget (AUTO)"] = fb
+        fb._engine()
+        try:
+            pt.Matcher(automaton=a, device=dev, backend="pallas")._engine()
+            raise AssertionError("Backend.PALLAS over budget did not raise")
+        except pt.PfacError as e:
+            print(f"walker: Backend.PALLAS over budget raises ({e})")
+    finally:
+        sieve_matcher._VMEM_TABLE_BUDGET = budget
+    for tier, mt in walkers.items():
+        e = mt._engine()
+        assert isinstance(e, XlaMatcher), (tier, type(e))
+        print(f"walker {tier}: XlaMatcher, perf_mode {e.perf_mode}, tile "
+              f"{e.tile}, {e.table_bytes} bytes of tables on the card")
+    for cname, d, host in snort:
+        sl, hs = d[:SLICE], host[:SLICE]
+        want = m.match_device(sl)
+        for tier, mt in walkers.items():
+            got = mt.match_device(sl)
+            assert got.shape[0] == SLICE and torch.equal(got, want[:SLICE]), \
+                f"walker {tier} != sieve engine on {cname}"
+            ms = cuda_ms(lambda: mt.match_device(sl), reps=5, warmup=1)
+            print(f"time walker {tier} {cname} {SLICE // MB} MB: {ms:.4f} "
+                  f"ms = {SLICE / ms / 1e6:.3f} GB/s, equal to the sieve "
+                  f"engine ({int((got > 0).sum())} matching positions)  "
+                  f"[{name_limit}]")
+        golden_check(a, hs, want, f"walker {cname}", SLICE, 0.0)
+    ab, mb, big_d, big_host = big
+    try:
+        pt.Matcher(automaton=ab, device=dev, backend="xla",
+                   perf_mode="hash")._engine()
+        raise AssertionError("100K hash tables built")
+    except pt.PfacError as e:
+        print(f"walker 100K hash mode: refused as in the reference ({e})")
+    t0 = time.perf_counter()
+    mx = pt.Matcher(automaton=ab, device=dev, backend="xla")
+    e = mx._engine()
+    print(f"walker 100K dense: {e.table_bytes} bytes of tables on the card; "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+    sl, hs = big_d[:BIG_SLICE], big_host[:BIG_SLICE]
+    want = mb.match_device(sl)
+    got = mx.match_device(sl)
+    assert torch.equal(got[:BIG_SLICE], want[:BIG_SLICE]), \
+        "walker 100K != sieve engine"
+    ms = cuda_ms(lambda: mx.match_device(sl), reps=5, warmup=1)
+    print(f"time walker Backend.XLA dense big_ruleset {BIG_SLICE // MB} MB: "
+          f"{ms:.4f} ms = {BIG_SLICE / ms / 1e6:.3f} GB/s, equal to the sieve "
+          f"engine  [{name_limit}]")
+    golden_check(ab, hs, got, "walker big_ruleset", BIG_SLICE, 0.0)
+    del mx, e, got, want, walkers
+    torch.cuda.empty_cache()
+
+
+def reduce_phase(dev, name_limit, corpora) -> dict:
+    """Phase 10b: match_reduce_device on every corpus of phase 6, launch
+    counts reset just before it, under torch.cuda.set_sync_debug_mode
+    ("error") after one warm call each; each (ids, positions, count) equal
+    to the plain reduce of the same result on the card; then its times
+    against its bound and torch.nonzero. -> the reduce_flags_kernel row's
+    numbers (on the DEFCON-like corpus)."""
+    from pfac_tpu_torch.backends import compact, reduce
+    from pfac_tpu_torch.experiments.gathers import cuda_ms
+    from pfac_tpu_torch.experiments.harness import BATCH
+
+    for _, mt, d, *_ in corpora:                  # warm
+        mt.match_reduce_device(d)
+    torch.cuda.synchronize()
+    reduce.LAUNCHES["reduce_flags_kernel"] = 0
+    for k in compact.LAUNCHES:
+        compact.LAUNCHES[k] = 0
+    reduced = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, mt, d, *_ in corpora:
+            reduced.append(mt.match_reduce_device(d))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = {**reduce.LAUNCHES, **compact.LAUNCHES}
+    print(f"reduce path launches: {json.dumps(launches)} over "
+          f"{len(corpora)} corpora under set_sync_debug_mode('error')")
+    assert launches["reduce_flags_kernel"] == len(corpora), launches
+    assert launches["compact_scan_kernel"] >= len(corpora), launches
+    assert launches["compact_kernel"] >= len(corpora), launches
+    err, row = 0, None
+    for (nm, mt, d, *_), (ids, pos, cnt) in zip(corpora, reduced):
+        res = mt.match_device(d)
+        npad = res.shape[0]
+        p_ids, p_pos, p_cnt = reduce.reduce_plain(res)
+        c = int(cnt)
+        assert cnt.dim() == 0 and c == int(p_cnt) == int((res > 0).sum())
+        assert torch.equal(ids, p_ids) and torch.equal(pos, p_pos), nm
+        fk, fc = reduce.reduce_flags(res)
+        fpk, fpc = reduce.reduce_flags_plain(res)
+        err = max(err, max_abs_err(fk, fpk), max_abs_err(fc, fpc))
+        assert err == 0, f"reduce_flags_kernel != plain on {nm}"
+        del p_ids, p_pos, fpk, fpc
+        run = lambda: reduce.reduce_from_dense(res)
+        ms = cuda_ms(run, batch=BATCH)
+        times = device_ms(run, need=("reduce_flags_kernel",
+                                     "compact_scan_kernel", "compact_kernel"))
+        busy = sum(times.values())
+        flags_dev = kernel_ms(times, "reduce_flags_kernel", ms)
+        scan_dev = kernel_ms(times, "compact_scan_kernel", ms)
+        expand_dev = kernel_ms(times, "compact_kernel", ms)
+        nonzero_ms = cuda_ms(lambda: torch.nonzero(res > 0), batch=BATCH)
+        plain_ms = cuda_ms(lambda: reduce.reduce_plain(res), reps=3, warmup=1)
+        bound = bound_ms(4 * npad + 8 * c)
+        print(f"time reduce {nm} ({npad} positions, {c} matches): "
+              f"{ms:.4f} ms batched, device busy {busy:.4f} ms "
+              f"(reduce_flags_kernel {flags_dev:.4f}, compact_scan_kernel "
+              f"{scan_dev:.4f}, compact_kernel {expand_dev:.4f}, the rest "
+              f"the outputs' zero fill); bound {bound:.4f} ms; "
+              f"torch.nonzero(result > 0) {nonzero_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms  [{name_limit}]")
+        if nm == "defcon_like":
+            nblocks = fc.shape[0]
+            row = {"ms": cuda_ms(lambda: reduce.reduce_flags(res),
+                                 batch=BATCH),
+                   "plain_ms": cuda_ms(lambda: reduce.reduce_flags_plain(res),
+                                       reps=3, warmup=1),
+                   "bound_ms": bound_ms(4 * npad + 4 * fk.shape[0]
+                                        + 4 * nblocks),
+                   "library_ms": nonzero_ms, "device_ms": flags_dev}
+            print(f"time reduce_flags_kernel defcon_like: {row['ms']:.4f} ms "
+                  f"batched, {flags_dev:.4f} ms profiler (plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+                  f"ms)  [{name_limit}]")
+        del res, fk, fc
+    del reduced
+    torch.cuda.empty_cache()
+    row.update(err=err, launches=launches["reduce_flags_kernel"])
+    return row
+
+
+def surfaces_phase(dev) -> None:
+    """Phase 10c: the C-style API's PFAC_matchFromDevice and
+    PFAC_matchFromDeviceReduce on CUDA tensors, on the conformance example
+    (the sieve engine and, with PFAC_TEXTURE_OFF, the lockstep walker);
+    then device_fuzz, two cases of each kind under a time cap."""
+    import os
+
+    from pfac_tpu_torch.runtime import capi
+    from pfac_tpu_torch.tools import device_fuzz
+
+    pat = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "pattern", "example_pattern")
+    d = torch.frombuffer(bytearray(b"ABEDEDABG"), dtype=torch.uint8).to(dev)
+    for texture in (capi.PFAC_AUTOMATIC, capi.PFAC_TEXTURE_OFF):
+        h = []
+        assert capi.PFAC_create(h, device=dev) == capi.PFAC_STATUS_SUCCESS
+        assert capi.PFAC_setTextureMode(h[0], texture) == 0
+        assert capi.PFAC_readPatternFromFile(h[0], pat) == 0
+        out, ids, pos, cnt = [], [], [], []
+        assert capi.PFAC_matchFromDevice(h[0], d, 9, out) == 0
+        assert out[0].device == d.device
+        assert out[0][:9].tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
+        assert capi.PFAC_matchFromDeviceReduce(h[0], d, 9, ids, pos,
+                                               cnt) == 0
+        assert cnt == [5] and pos[0][:5].tolist() == [0, 1, 2, 4, 6]
+        assert ids[0][:5].tolist() == [1, 3, 4, 4, 2]
+        eng = type(h[0].matcher._engine()).__name__
+        assert capi.PFAC_destroy(h[0]) == 0
+        print(f"capi: PFAC_matchFromDevice and PFAC_matchFromDeviceReduce on "
+              f"CUDA tensors, texture mode {texture.name}: {eng}, ok")
+    for kind in device_fuzz.KINDS:
+        rc = device_fuzz.main(["--cases", "2", "--seed", "7", "--kind", kind,
+                               "--max-seconds", "8", "--device", str(dev)])
+        assert rc == 0, f"device_fuzz {kind} failed"
 
 
 def main() -> int:
@@ -804,8 +1014,37 @@ def main() -> int:
             print(f"device time {c.name}: {c.kernel} {ours:.4f} ms, "
                   f"torch.gather's {len(lib)} kernel(s) "
                   f"{sum(lib.values()):.4f} ms  [{name_limit}]")
+    # G1 on E1 C/D, E2 and the E6 planes, and G4 on E4: the card's own time
+    # of the kernel and, for G1, of torch.take's (torch.profiler)
+    for c in checked:
+        if not (c.kernel == "align_kernel" or (
+                c.kernel == "word_gather_kernel"
+                and c.name[:2] in ("E1", "E2", "E6"))):
+            continue
+        wrapper = next(t["ms"] for t in timed if t["name"] == c.name)
+        ours = kernel_ms(device_ms(c.run, need=(c.kernel,)), c.kernel,
+                         wrapper)
+        lib = ""
+        if c.library is not None:
+            lt = device_ms(c.library)
+            lib = (f", torch.take's {len(lt)} kernel(s) "
+                   f"{sum(lt.values()):.4f} ms")
+        print(f"device time {c.name}: {c.kernel} {ours:.4f} ms{lib}, bound "
+              f"{c.bound_ms:.4f} ms (wrapper {wrapper:.4f} ms)  "
+              f"[{name_limit}]")
     del checked
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
+    # 10. the lockstep walker, the device reduce, the C-style API and the
+    # fuzz on the card
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lockstep_phase(dev, name_limit, a, m,
+                   [("random", rand_d, rand), ("defcon_like", def_d, defcon)],
+                   (ab, mb, big_d, big))
+    red = reduce_phase(dev, name_limit, corpora)
+    surfaces_phase(dev)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     def pick(kernel: str, *keys: str) -> dict:
         return next(t for t in timed if t["kernel"] == kernel
@@ -875,6 +1114,12 @@ def main() -> int:
             "pfac_tpu/backends/pallas_walk.py:664", k4_err, k4_ms, k4_plain,
             k4_bound),
     ]
+    r = row("reduce_flags_kernel", "compact.cu",
+            "pfac_tpu/backends/xla.py:476 (_reduce_rowgather, XLA)",
+            red["err"], red["ms"], red["plain_ms"], red["bound_ms"],
+            red["library_ms"])
+    r["launches"] = red["launches"]
+    kernels.append(r)
     for k in gathers.LAUNCHES:
         r = row(k, "gather_micro.cu", replaces[k], g_err[k], rep[k]["ms"],
                 rep[k]["plain_ms"], rep[k]["bound_ms"], rep[k]["library_ms"])

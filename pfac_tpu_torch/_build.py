@@ -40,8 +40,12 @@ _SIGNATURES = {
                    _I, _P],
     # device, counts, nblocks, thresh, offsets, stream
     "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P],
-    # device, bits, counts, offsets, nblocks, block, thresh, pos, stream
-    "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
+    # device, bits, counts, offsets, nblocks, block, thresh, pos, values,
+    # ids, stream
+    "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # device, result, npad, block, nblocks, bits, counts, stream
+    "pfac_reduce_flags": [ctypes.c_int, _P, ctypes.c_int64, _I, _I, _P, _P,
+                          _P],
     # device, data, n, pos, count, cap, arena, words, resident, desc,
     # nsteps, out, stream
     "pfac_walk": [ctypes.c_int, _P, _I, _P, _P, _I, _P, _I, _I, _P, _I, _P,

@@ -47,22 +47,44 @@ def capacity(nblocks: int, block: int, thresh: int) -> int:
     return nblocks * max(0, min(thresh - 1, block))
 
 
-def compact(bits: torch.Tensor, counts: torch.Tensor,
-            thresh: int) -> tuple[torch.Tensor, torch.Tensor]:
+def compact(bits: torch.Tensor, counts: torch.Tensor, thresh: int, *,
+            out: torch.Tensor | None = None,
+            values: torch.Tensor | None = None,
+            ids: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (pos, count): the positions of the set bits of `bits` (bit j of
     word w: position 32w + j), ascending, int32, without the blocks whose
     count is at least `thresh`, in pos[:count]; count is a 1-element int32
     tensor on the bits' device. `counts[b]` must be block b's number of set
     bits. A CPU tensor runs the plain version (pos is exact); a CUDA tensor
     launches the kernels into a buffer of :func:`capacity` positions, whose
-    words past the count are undefined, and reads nothing back."""
+    words past the count are undefined, and reads nothing back.
+
+    `out` (int32, room for every position listed) takes the positions
+    instead of a new buffer, and is returned as pos. With `values` (int32,
+    indexed by position) and `ids` (room for every position listed),
+    ids[i] = values[pos[i]] as well: the device reduce's gather, done by
+    compact_kernel as it writes each position."""
     block = _check(bits, counts)
+    if (values is None) != (ids is None):
+        raise ValueError("values and ids go together")
     dev = bits.device
     if dev.type == "cpu":
         pos = compact_plain(bits, counts, thresh)
-        return pos, torch.tensor([pos.shape[0]], dtype=torch.int32)
+        k = pos.shape[0]
+        if values is not None:
+            ids[:k] = values[pos.long()]
+        if out is not None:
+            out[:k] = pos
+            pos = out
+        return pos, torch.tensor([k], dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"no compaction for device {dev}")
+    for t in (out, values, ids):
+        if t is not None and (t.dtype != torch.int32 or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError("out, values and ids must be contiguous int32 "
+                             "tensors on the bits' device")
     nblocks = counts.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
@@ -71,11 +93,15 @@ def compact(bits: torch.Tensor, counts: torch.Tensor,
                                thresh, offsets.data_ptr(), stream)
     LAUNCHES["compact_scan_kernel"] += 1
     _build.check(rc, "compact_scan_kernel")
-    pos = torch.empty(capacity(nblocks, block, thresh), dtype=torch.int32,
-                      device=dev)
+    pos = out
+    if pos is None:
+        pos = torch.empty(capacity(nblocks, block, thresh), dtype=torch.int32,
+                          device=dev)
     rc = lib.pfac_compact(dev.index or 0, bits.data_ptr(), counts.data_ptr(),
                           offsets.data_ptr(), nblocks, block, thresh,
-                          pos.data_ptr(), stream)
+                          pos.data_ptr(),
+                          None if values is None else values.data_ptr(),
+                          None if ids is None else ids.data_ptr(), stream)
     LAUNCHES["compact_kernel"] += 1
     _build.check(rc, "compact_kernel")
     return pos, offsets[nblocks:]

@@ -14,10 +14,11 @@ import torch
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
 from . import pipeline
-from .csr_tables import build_csr_tables
+from .csr_tables import CsrTables, build_csr_tables
 from .golden import _as_u8, reduce_result
+from .reduce import reduce_from_dense
 from .sieve_tables import _VMEM_TABLE_BUDGET, LANES, SieveTables
-from .walk_tables import build_walk_tables_gated
+from .walk_tables import WalkTables, build_walk_tables_gated
 
 TILE_ROWS = 512              # positions per bucket = TILE_ROWS * LANES
 _POS_LIMIT = (1 << 31) - (1 << 22)   # int32 positions, as the reference
@@ -29,33 +30,47 @@ def npad_for(n: int, tile_rows: int = TILE_ROWS) -> int:
     return max(1, -(-n // block)) * block
 
 
+def build_host_tables(automaton: Automaton) -> tuple[
+        SieveTables, WalkTables | None, CsrTables | None]:
+    """The engine's host tables (numpy; nothing touches a device): the sieve
+    tables, then the walk tables within their 6 MB budget, else the CSR
+    tables. Raises PfacError where the sieve tables pass the reference's
+    8 MB budget; ``select.try_build`` falls back to the lockstep walker on
+    that, or on any other error raised here, as the reference does."""
+    tables = SieveTables.build(automaton)
+    if tables.vmem_bytes > _VMEM_TABLE_BUDGET:
+        raise PfacError(
+            PfacStatus.INVALID_PARAMETER,
+            f"sieve tables of {tables.vmem_bytes} bytes exceed the sieve "
+            f"engine's budget of {_VMEM_TABLE_BUDGET} bytes",
+        )
+    walk_tables = build_walk_tables_gated(automaton, tables)
+    csr_tables = None
+    if walk_tables is None and tables.alive is not None:
+        csr_tables = build_csr_tables(automaton)
+    return tables, walk_tables, csr_tables
+
+
 class SieveMatcher:
     """Sieve kernel + deep tier on one torch device.
 
     The deep tier is the walk-table tier (dense-block escape K3, survivor
     walk K2) when the walk tables can be built within their 6 MB budget,
     else the CSR tier (CSR walk) for rulesets with patterns of >= 4 bytes.
-    Raises PfacError where the reference would take the XLA lockstep
-    walker, which the port does not have yet: sieve tables past the
-    reference's 8 MB budget."""
+    `host` takes the tables of :func:`build_host_tables` built beforehand
+    (``select.try_build`` builds them apart, so that nothing it catches
+    comes from a device)."""
 
-    def __init__(self, automaton: Automaton, *, device, tile_rows=TILE_ROWS):
+    def __init__(self, automaton: Automaton, *, device, tile_rows=TILE_ROWS,
+                 host=None):
         self.automaton = automaton
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.tile_rows = tile_rows
-        self.tables = SieveTables.build(automaton)
-        if self.tables.vmem_bytes > _VMEM_TABLE_BUDGET:
-            raise PfacError(
-                PfacStatus.INVALID_PARAMETER,
-                f"sieve tables of {self.tables.vmem_bytes} bytes need the "
-                "XLA lockstep walker, which is not ported yet",
-            )
-        self.walk_tables = build_walk_tables_gated(automaton, self.tables)
-        self.csr_tables = None
-        if self.walk_tables is None and self.tables.alive is not None:
-            self.csr_tables = build_csr_tables(automaton)
+        if host is None:
+            host = build_host_tables(automaton)
+        self.tables, self.walk_tables, self.csr_tables = host
         self._sieve = self.tables.to_device(self.device)
         self._walk = (None if self.walk_tables is None
                       else self.walk_tables.to_device(self.device))
@@ -93,15 +108,9 @@ class SieveMatcher:
 
     def match_reduce_device(self, data_u8: torch.Tensor):
         """-> (ids, positions, count) on the device: npad-long int32 arrays,
-        positions ascending, zeros past count; count a 0-d int32 tensor."""
-        result = self.match_device(data_u8)
-        pos = torch.nonzero(result > 0).reshape(-1)
-        ids = torch.zeros_like(result)
-        out_pos = torch.zeros_like(result)
-        ids[: pos.shape[0]] = result[pos]
-        out_pos[: pos.shape[0]] = pos.to(torch.int32)
-        return ids, out_pos, torch.tensor(pos.shape[0], dtype=torch.int32,
-                                          device=self.device)
+        positions ascending, zeros past count; count a 0-d int32 tensor
+        (``reduce.py``; on the card it never waits for the device)."""
+        return reduce_from_dense(self.match_device(data_u8))
 
     def match_reduce(self, data):
         return reduce_result(self.match(data))

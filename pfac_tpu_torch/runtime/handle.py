@@ -3,16 +3,23 @@
 The same constructor, setters and match methods as
 ``pfac_tpu.runtime.handle.Matcher``, plus an explicit torch ``device``. The
 host logic is the reference's (configuration, the CPU golden platform,
-chunking past ``_CHUNK_LIMIT``, ``stream()``); only engine selection
-differs:
+chunking past ``_CHUNK_LIMIT``, ``stream()``), and so is engine selection
+(``_build_engine``):
 
-* ``Platform.DEVICE`` with ``Backend.AUTO``/``PALLAS``: the sieve engine
+* ``Backend.GOLDEN``, and ``match`` / ``match_reduce`` on ``Platform.CPU``:
+  the serial numpy golden model;
+* ``Platform.DEVICE`` with ``Backend.AUTO`` / ``PALLAS``: the sieve engine
   (``backends.select.try_build``; walk-table or CSR tier) on ``device``;
   ``device="cuda"`` runs the CUDA kernels, ``device="cpu"`` their plain
   torch versions;
-* ``Platform.CPU`` and ``Backend.GOLDEN``: the serial numpy golden model;
-* ``Backend.XLA`` and ``Platform.CPU_PARALLEL`` raise ``PfacError`` until the
-  lockstep walker is ported.
+* everything else, and where ``try_build`` returns ``None``
+  (``PlacementMode.HBM``, or sieve tables that cannot be built unless the
+  sieve engine is required): the lockstep walker ``backends.xla.XlaMatcher``
+  in ``perf_mode``, on ``device`` for ``Platform.DEVICE`` and on
+  ``torch.device("cpu")`` for ``Platform.CPU`` and ``CPU_PARALLEL``.
+
+Only ``Platform.DEVICE`` needs the device: ``Matcher(..., platform="cpu")``
+runs on a host with no GPU whatever ``device`` says.
 
 Mode mapping from the CUDA PFAC library: ``PFAC_setPlatform(GPU/CPU/
 CPU_OMP)`` -> ``Platform``; ``PFAC_setPerfMode(TIME/SPACE_DRIVEN)`` ->
@@ -106,9 +113,6 @@ class Matcher:
         device="cuda",
     ):
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise PfacError(PfacStatus.INVALID_PARAMETER,
-                            "CUDA device requested but no GPU is available")
         if device.type not in ("cuda", "cpu"):
             raise PfacError(PfacStatus.INVALID_PARAMETER,
                             f"unsupported device {device}")
@@ -131,6 +135,13 @@ class Matcher:
         self.tile = tile
         self.device = device
         self._engines: dict = {}
+        if self.platform == Platform.DEVICE:
+            self._check_device()
+
+    def _check_device(self) -> None:
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise PfacError(PfacStatus.INVALID_PARAMETER,
+                            "CUDA device requested but no GPU is available")
 
     # ------------------------------------------------------------- config
     def set_perf_mode(self, perf_mode: PerfMode | str) -> None:
@@ -174,7 +185,8 @@ class Matcher:
 
     def match_device(self, data_u8):
         """`PFAC_matchFromDevice` analog: uint8 tensor on the device in,
-        int32 tensor (padded to the 64K-position bucket) out."""
+        int32 tensor out, padded with zeros: to the 64K-position bucket on
+        the sieve engine, to whole tiles on the lockstep walker."""
         return self._engine().match_device(data_u8)
 
     def match_reduce(self, data) -> tuple[np.ndarray, np.ndarray, int]:
@@ -222,18 +234,25 @@ class Matcher:
         return eng
 
     def _build_engine(self):
-        if (self.platform == Platform.CPU_PARALLEL
-                or self.backend == Backend.XLA):
-            raise PfacError(
-                PfacStatus.INVALID_PARAMETER,
-                "the XLA lockstep walker (Backend.XLA, Platform.CPU_PARALLEL) "
-                "is not ported yet",
-            )
+        mode = self._mode()
+        device = self.device
+        if self.platform == Platform.DEVICE:
+            self._check_device()
+        else:
+            device = torch.device("cpu")
         if self.backend == Backend.GOLDEN:
-            return _GoldenEngine(self.automaton, self._mode())
-        from ..backends.select import try_build
-        return try_build(self.automaton, placement=self.placement,
-                         tile=self.tile, device=self.device)
+            return _GoldenEngine(self.automaton, mode)
+        if (self.backend in (Backend.AUTO, Backend.PALLAS)
+                and self.platform == Platform.DEVICE):
+            from ..backends.select import try_build
+            eng = try_build(self.automaton, mode, placement=self.placement,
+                            tile=self.tile, device=device,
+                            required=self.backend == Backend.PALLAS)
+            if eng is not None:
+                return eng
+        from ..backends.xla import DEFAULT_TILE, XlaMatcher
+        return XlaMatcher(self.automaton, perf_mode=mode,
+                          tile=self.tile or DEFAULT_TILE, device=device)
 
 
 def _coerce(enum_cls, v):

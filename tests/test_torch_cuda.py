@@ -580,3 +580,80 @@ def test_micro_benchmark_cases_on_card(dev, make):
         else:
             assert harness.check(item) == 0
     assert sum(gathers.LAUNCHES.values()) > 0
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("n", [1, 1000, 131_073, 600_001])
+def test_lockstep_walker_on_card(dev, mode, n):
+    # the lockstep walker on the card equals itself on the CPU, the sieve
+    # engine on the card and the golden model
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    pats, rng = _ruleset(n + 17)
+    a = pt.Automaton.from_patterns(pats)
+    host = _corpus(rng, pats, max(n, 200))[:n]
+    data = torch.from_numpy(host).to(dev)
+    on_card = XlaMatcher(a, perf_mode=mode, device=dev).match_device(data)
+    on_cpu = XlaMatcher(a, perf_mode=mode).match_device(data.cpu())
+    assert torch.equal(on_card.cpu(), on_cpu)
+    sieve_res = pt.Matcher(automaton=a, device=dev).match_device(data)
+    assert torch.equal(on_card[:n], sieve_res[:n])
+    assert on_cpu[:n].tolist() == golden.match_edges_batch(a, host).tolist()
+    m = pt.Matcher(automaton=a, device=dev, backend="xla", perf_mode=mode)
+    assert isinstance(m._engine(), XlaMatcher)
+    assert m.match(host.tobytes()).tolist() == on_cpu[:n].tolist()
+
+
+@pytest.mark.parametrize("npad", [64, 65_536, 65_536 + 96, 3 * 65_536 + 4_000,
+                                  (1 << 22) + 131_072])
+@pytest.mark.parametrize("density", [0.0, 0.03, 1.0])
+def test_reduce_flags_kernel_matches_plain(dev, npad, density):
+    # the bitmap and block counts of result > 0, the last block cut
+    from pfac_tpu_torch.backends import reduce
+    rng = np.random.default_rng(npad)
+    res = np.where(rng.random(npad) < density,
+                   rng.integers(1, 1 << 20, size=npad), 0).astype(np.int32)
+    r = torch.from_numpy(res).to(dev)
+    before = reduce.LAUNCHES["reduce_flags_kernel"]
+    bk, ck = reduce.reduce_flags(r)
+    assert reduce.LAUNCHES["reduce_flags_kernel"] == before + 1
+    bp, cp = reduce.reduce_flags_plain(r)
+    assert torch.equal(bk, bp) and torch.equal(ck, cp)
+    ids, pos, count = reduce.reduce_from_dense(r)
+    want = reduce.reduce_plain(r)
+    assert count.dim() == 0 and int(count) == int(want[2])
+    assert torch.equal(ids, want[0]) and torch.equal(pos, want[1])
+
+
+def test_reduce_does_not_synchronize(dev):
+    # match_reduce_device on both engines under the sync debug mode: the
+    # reduce launches reduce_flags_kernel and both compaction kernels and
+    # never waits for the device (the lockstep walker's own match_device
+    # does, so its result is made first)
+    from pfac_tpu_torch.backends import reduce
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    pats, rng = _ruleset(77)
+    host = _corpus(rng, pats, 300_001)
+    data = torch.from_numpy(host).to(dev)
+    m = pt.Matcher(pats, device=dev)
+    m.match_reduce_device(data)                   # warm
+    xres = XlaMatcher(m.automaton, device=dev).match_device(data)
+    torch.cuda.synchronize()
+    counts = (reduce.LAUNCHES["reduce_flags_kernel"],
+              compact.LAUNCHES["compact_scan_kernel"],
+              compact.LAUNCHES["compact_kernel"])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = m.match_reduce_device(data)
+        xgot = reduce.reduce_from_dense(xres)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (reduce.LAUNCHES["reduce_flags_kernel"] - counts[0],
+            compact.LAUNCHES["compact_scan_kernel"] - counts[1],
+            compact.LAUNCHES["compact_kernel"] - counts[2]) == (2, 3, 3)
+    g_ids, g_pos, g_n = golden.reduce_result(
+        golden.match_edges_batch(m.automaton, host))
+    for ids, pos, cnt in (got, xgot):
+        c = int(cnt)
+        assert c == g_n and pos[:c].tolist() == g_pos.tolist()
+        assert ids[:c].tolist() == g_ids.tolist()
+        assert not ids[c:].any() and not pos[c:].any()

@@ -99,6 +99,36 @@ def test_conformance_with_jax_blocked():
     assert res.stdout.strip() == "ok"
 
 
+def test_surfaces_with_jax_blocked():
+    # the lockstep walker, the reduce, the C-style API, the CLI, the fuzz
+    # and the examples run with the reference unimportable
+    res = _run_blocked(
+        "import numpy as np, torch\n"
+        "from pfac_tpu_torch import StreamMatcher, __version__\n"
+        "from pfac_tpu_torch.runtime import capi\n"
+        "from pfac_tpu_torch.tools import cli, device_fuzz\n"
+        "from pfac_tpu_torch.examples import simple_example_reduce\n"
+        "h = []\n"
+        "assert capi.PFAC_create(h, device='cpu') == 0\n"
+        "assert capi.PFAC_setTextureMode(h[0], capi.PFAC_TEXTURE_OFF) == 0\n"
+        "assert capi.PFAC_readPatternFromFile(h[0], "
+        "'tests/pattern/example_pattern') == 0\n"
+        "ids, pos, cnt = [], [], []\n"
+        "d = torch.from_numpy(np.frombuffer(b'ABEDEDABG', np.uint8).copy())\n"
+        "assert capi.PFAC_matchFromDeviceReduce(h[0], d, 9, ids, pos, cnt) "
+        "== 0\n"
+        "assert cnt == [5] and pos[0][:5].tolist() == [0, 1, 2, 4, 6]\n"
+        "assert type(h[0].matcher._engine()).__name__ == 'XlaMatcher'\n"
+        "assert cli.main(['match', '-P', 'tests/pattern/example_pattern', "
+        "'-I', 'tests/data/example_input', '--platform', 'cpu']) == 0\n"
+        "assert simple_example_reduce.main(['--device', 'cpu']) == 0\n"
+        "assert device_fuzz.main(['--cases', '1', '--device', 'cpu']) == 0\n"
+        "assert not any(k.split('.')[0] in BLOCKED for k in sys.modules)\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_blocker_really_blocks():
     res = _run_blocked("import jax\n")
     assert res.returncode != 0 and "jax is blocked" in res.stderr

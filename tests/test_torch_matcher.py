@@ -5,11 +5,17 @@ import numpy as np
 import pytest
 import torch
 
+import pfac_tpu
 import pfac_tpu_torch as pt
+from pfac_tpu import Matcher as RefMatcher
 from pfac_tpu.backends import golden
+from pfac_tpu.backends import pallas as ref_pallas
 from pfac_tpu.backends.pallas_sieve import SieveMatcher as RefSieveMatcher
-from pfac_tpu_torch.backends import block_walk, compact, sieve
-from pfac_tpu_torch.backends.sieve_matcher import npad_for
+from pfac_tpu.backends.xla import XlaMatcher as RefXlaMatcher
+from pfac_tpu_torch.backends import (block_walk, compact, select, sieve,
+                                     sieve_matcher)
+from pfac_tpu_torch.backends.sieve_matcher import SieveMatcher, npad_for
+from pfac_tpu_torch.backends.xla import XlaMatcher
 
 README = [b"AB", b"ABG", b"BEDE", b"ED"]
 
@@ -139,12 +145,102 @@ def test_wide_ruleset_takes_the_csr_tier():
     assert got.tolist() == want.tolist() and (got > 0).sum() >= 20
 
 
-def test_unported_tiers_raise():
-    # the XLA lockstep walker is not ported: each tier that needs it raises
-    for kw in ({"backend": "xla"}, {"platform": "cpu_parallel"},
-               {"placement": "hbm"}):
-        with pytest.raises(pt.PfacError, match="not ported"):
-            pt.Matcher(README, device="cpu", **kw).match(b"ABEDEDABG")
+LOCKSTEP_TIERS = {"xla": {"backend": "xla"},
+                  "cpu_parallel": {"platform": "cpu_parallel"},
+                  "hbm": {"placement": "hbm"}}
+
+
+def _lockstep_equal(kw, mode, monkeypatch=None):
+    rng = np.random.default_rng(9)
+    pats = README + [bytes(rng.integers(65, 70, size=int(k), dtype=np.uint8))
+                     for k in rng.integers(1, 14, size=40)]
+    data = bytes(rng.integers(65, 70, size=3000, dtype=np.uint8)) + b"ABEDEDABG"
+    m = pt.Matcher(pats, device="cpu", perf_mode=mode, tile=64, **kw)
+    assert isinstance(m._engine(), XlaMatcher)
+    ref = RefMatcher(pats, perf_mode=mode, tile=64, **kw)
+    assert isinstance(ref._engine(), RefXlaMatcher)
+    got, want = m.match(data), ref.match(data)
+    assert got.tolist() == want.tolist() == golden.match_dense(
+        m.automaton, data).tolist()
+    ids, pos, n = m.match_reduce(data)
+    r_ids, r_pos, r_n = ref.match_reduce(data)
+    assert (n, pos.tolist(), ids.tolist()) == (r_n, r_pos.tolist(),
+                                               r_ids.tolist())
+    u8 = np.frombuffer(data, np.uint8)
+    out = m.match_device(torch.from_numpy(u8.copy()))
+    assert out.numpy().tolist() == np.asarray(ref.match_device(u8)).tolist()
+    return m
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("tier", LOCKSTEP_TIERS)
+def test_lockstep_tiers_equal_reference(tier, mode):
+    # Backend.XLA, Platform.CPU_PARALLEL and PlacementMode.HBM take the
+    # lockstep walker, as in the reference
+    _lockstep_equal(LOCKSTEP_TIERS[tier], mode)
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+def test_over_budget_sieve_falls_back(monkeypatch, mode):
+    # sieve tables past the budget (patched to 0 in both packages): AUTO
+    # takes the lockstep walker, PALLAS raises, as in the reference
+    monkeypatch.setattr(sieve_matcher, "_VMEM_TABLE_BUDGET", 0)
+    monkeypatch.setattr(ref_pallas, "_VMEM_TABLE_BUDGET", 0)
+    _lockstep_equal({}, mode)
+    for pkg in (pt, pfac_tpu):
+        with pytest.raises(pkg.PfacError, match="bytes"):
+            kw = {"device": "cpu"} if pkg is pt else {}
+            pkg.Matcher(README, backend="pallas", **kw).match(b"ABEDEDABG")
+
+
+def test_try_build_catches_only_host_table_errors(monkeypatch):
+    a = pt.Automaton.from_patterns(README)
+    kw = dict(placement=pt.PlacementMode.AUTO, tile=None, device="cpu")
+    assert isinstance(select.try_build(a, "dense", required=False, **kw),
+                      SieveMatcher)
+    assert select.try_build(
+        a, "dense", required=False,
+        **{**kw, "placement": pt.PlacementMode.HBM}) is None
+
+    def no_convergence(automaton):
+        raise ValueError("CHD displacement search did not converge")
+
+    # an error while the host tables are built: the walker serves the call
+    # unless the sieve engine is required
+    with monkeypatch.context() as mp:
+        mp.setattr(sieve_matcher.SieveTables, "build",
+                   staticmethod(no_convergence))
+        assert select.try_build(a, "dense", required=False, **kw) is None
+        with pytest.raises(ValueError, match="converge"):
+            select.try_build(a, "dense", required=True, **kw)
+        m = pt.Matcher(README, device="cpu")
+        assert isinstance(m._engine(), XlaMatcher)
+        assert m.match(b"ABEDEDABG").tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
+
+    # an error from the device (placing the tables, loading or launching a
+    # kernel) is never caught
+    def device_error(self, device):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(sieve_matcher.SieveTables, "to_device", device_error)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        select.try_build(a, "dense", required=False, **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pt.Matcher(README, device="cpu").match(b"ABEDEDABG")
+
+
+@pytest.mark.parametrize("platform", ["cpu", "cpu_parallel"])
+def test_cpu_platforms_need_no_gpu(platform):
+    # the default device is "cuda"; a CPU platform never touches it
+    m = pt.Matcher(README, platform=platform)
+    assert m.match(b"ABEDEDABG").tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
+    ids, pos, n = m.match_reduce(b"ABEDEDABG")
+    assert (n, pos.tolist(), ids.tolist()) == (5, [0, 1, 2, 4, 6],
+                                               [1, 3, 4, 4, 2])
+    out = m.match_device(torch.from_numpy(
+        np.frombuffer(b"ABEDEDABG", np.uint8).copy()))
+    assert out.device.type == "cpu" and out[:9].tolist() == [
+        1, 3, 4, 0, 4, 0, 2, 0, 0]
 
 
 def test_cuda_requested_without_gpu_raises():
