@@ -64,12 +64,15 @@ Phases, each on lines of its own:
    four arenas built above, launch counts reset just before them: every
    case bit-equal to its plain version and to the reference case's numpy
    expectation, every placement that must refuse its table refused, each
-   of the kernels G1-G4 launched (G2's two, staged and direct); then a
-   ``time`` line per case (with ``torch.take`` / ``torch.gather`` beside
-   G1 / G2; E5's shapes also on the path the rule did not pick), and for
-   the launch-bound G2 cases the card's own time of the kernel and of
-   ``torch.gather``'s (torch.profiler), and the same for G1 on E1 C/D, E2
-   and the E6 planes (beside ``torch.take``'s) and for G4 on E4;
+   of the kernels G1-G4 launched (G1's two, one CTA's table and a
+   cluster's; G2's two, staged and direct); G1 runs in each of its
+   placements (smem, cluster, ldg, cg) wherever the table fits and in the
+   one it takes by default; then a ``time`` line per case (with
+   ``torch.take`` / ``torch.gather`` beside G1 / G2; E5's shapes also on
+   the path the rule did not pick), and for the launch-bound G2 cases the
+   card's own time of the kernel and of ``torch.gather``'s
+   (torch.profiler), and the same for G1 on E1 C/D, E2 and the E6 planes
+   (beside ``torch.take``'s) and for G4 on E4;
 10. the lockstep walker (``backends/xla.py``): every tier that takes it
    (``Backend.XLA`` dense and hash, ``PlacementMode.HBM``, and the fallback
    from a sieve-table budget patched to 0 in this process; ``Backend.PALLAS``
@@ -79,16 +82,17 @@ Phases, each on lines of its own:
    the sieve engine on the same bytes and to the golden model, with e2e
    times and table bytes; the device reduce (``match_reduce_device``) on
    every corpus of phase 6, launch counts reset just before it, under
-   ``torch.cuda.set_sync_debug_mode("error")``: reduce_flags_kernel and both
-   compaction kernels launched, each result equal to the plain reduce, its
-   times against its bound and ``torch.nonzero(result > 0)``; the C-style
+   ``torch.cuda.set_sync_debug_mode("error")``: reduce_kernel and
+   reduce_tail_kernel launched once a corpus, each result equal to the
+   plain reduce, its times (and each kernel's by the profiler) against its
+   bound (12 B a position) and ``torch.nonzero(result > 0)``; the C-style
    API's ``PFAC_matchFromDevice`` / ``PFAC_matchFromDeviceReduce`` on CUDA
    tensors; ``tools/device_fuzz`` on two cases of each kind under a time
    cap.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
-reduce_flags_kernel with its launches on the reduce path, and G1-G4, each
-with its bound and library time), and last
+reduce_kernel and reduce_tail_kernel with their launches on the reduce
+path, and G1-G4, each with its bound and library time), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
 Integer IDs and positions are compared exactly (tolerance 0). A bound is
@@ -299,18 +303,18 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
     counts reset just before it, under torch.cuda.set_sync_debug_mode
     ("error") after one warm call each; each (ids, positions, count) equal
     to the plain reduce of the same result on the card; then its times
-    against its bound and torch.nonzero. -> the reduce_flags_kernel row's
-    numbers (on the DEFCON-like corpus)."""
-    from pfac_tpu_torch.backends import compact, reduce
+    (batched, and each kernel's by the profiler) against its bound
+    (reduce.bound_bytes: 12 B a position) and torch.nonzero. -> the
+    kernels' rows' numbers (on the DEFCON-like corpus)."""
+    from pfac_tpu_torch.backends import reduce
     from pfac_tpu_torch.experiments.gathers import cuda_ms
     from pfac_tpu_torch.experiments.harness import BATCH
 
     for _, mt, d, *_ in corpora:                  # warm
         mt.match_reduce_device(d)
     torch.cuda.synchronize()
-    reduce.LAUNCHES["reduce_flags_kernel"] = 0
-    for k in compact.LAUNCHES:
-        compact.LAUNCHES[k] = 0
+    for k in reduce.LAUNCHES:
+        reduce.LAUNCHES[k] = 0
     reduced = []
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -318,61 +322,52 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
             reduced.append(mt.match_reduce_device(d))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    launches = {**reduce.LAUNCHES, **compact.LAUNCHES}
+    launches = dict(reduce.LAUNCHES)
     print(f"reduce path launches: {json.dumps(launches)} over "
           f"{len(corpora)} corpora under set_sync_debug_mode('error')")
-    assert launches["reduce_flags_kernel"] == len(corpora), launches
-    assert launches["compact_scan_kernel"] >= len(corpora), launches
-    assert launches["compact_kernel"] >= len(corpora), launches
-    err, row = 0, None
+    assert launches == dict.fromkeys(reduce.LAUNCHES, len(corpora)), launches
+    err, rows = 0, None
     for (nm, mt, d, *_), (ids, pos, cnt) in zip(corpora, reduced):
         res = mt.match_device(d)
         npad = res.shape[0]
         p_ids, p_pos, p_cnt = reduce.reduce_plain(res)
         c = int(cnt)
         assert cnt.dim() == 0 and c == int(p_cnt) == int((res > 0).sum())
-        assert torch.equal(ids, p_ids) and torch.equal(pos, p_pos), nm
-        fk, fc = reduce.reduce_flags(res)
-        fpk, fpc = reduce.reduce_flags_plain(res)
-        err = max(err, max_abs_err(fk, fpk), max_abs_err(fc, fpc))
-        assert err == 0, f"reduce_flags_kernel != plain on {nm}"
-        del p_ids, p_pos, fpk, fpc
+        err = max(err, max_abs_err(ids, p_ids), max_abs_err(pos, p_pos))
+        assert err == 0, f"the reduce != plain on {nm}"
+        del p_ids, p_pos
         run = lambda: reduce.reduce_from_dense(res)
         ms = cuda_ms(run, batch=BATCH)
-        times = device_ms(run, need=("reduce_flags_kernel",
-                                     "compact_scan_kernel", "compact_kernel"))
-        busy = sum(times.values())
-        flags_dev = kernel_ms(times, "reduce_flags_kernel", ms)
-        scan_dev = kernel_ms(times, "compact_scan_kernel", ms)
-        expand_dev = kernel_ms(times, "compact_kernel", ms)
+        times = device_ms(run, need=tuple(reduce.LAUNCHES))
+        main_dev = kernel_ms(times, "reduce_kernel", ms)
+        tail_dev = kernel_ms(times, "reduce_tail_kernel", ms)
         nonzero_ms = cuda_ms(lambda: torch.nonzero(res > 0), batch=BATCH)
         plain_ms = cuda_ms(lambda: reduce.reduce_plain(res), reps=3, warmup=1)
-        bound = bound_ms(4 * npad + 8 * c)
+        bound = bound_ms(reduce.bound_bytes(npad))
         print(f"time reduce {nm} ({npad} positions, {c} matches): "
-              f"{ms:.4f} ms batched, device busy {busy:.4f} ms "
-              f"(reduce_flags_kernel {flags_dev:.4f}, compact_scan_kernel "
-              f"{scan_dev:.4f}, compact_kernel {expand_dev:.4f}, the rest "
-              f"the outputs' zero fill); bound {bound:.4f} ms; "
-              f"torch.nonzero(result > 0) {nonzero_ms:.4f} ms; plain "
-              f"{plain_ms:.3f} ms  [{name_limit}]")
+              f"{ms:.4f} ms batched = {100 * bound / ms:.1f}% of bound; "
+              f"reduce_kernel {main_dev:.4f} ms, reduce_tail_kernel "
+              f"{tail_dev:.4f} ms (profiler); bound {bound:.4f} ms (12 B a "
+              f"position); torch.nonzero(result > 0) {nonzero_ms:.4f} ms; "
+              f"plain {plain_ms:.3f} ms  [{name_limit}]")
         if nm == "defcon_like":
-            nblocks = fc.shape[0]
-            row = {"ms": cuda_ms(lambda: reduce.reduce_flags(res),
-                                 batch=BATCH),
-                   "plain_ms": cuda_ms(lambda: reduce.reduce_flags_plain(res),
-                                       reps=3, warmup=1),
-                   "bound_ms": bound_ms(4 * npad + 4 * fk.shape[0]
-                                        + 4 * nblocks),
-                   "library_ms": nonzero_ms, "device_ms": flags_dev}
-            print(f"time reduce_flags_kernel defcon_like: {row['ms']:.4f} ms "
-                  f"batched, {flags_dev:.4f} ms profiler (plain "
-                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
-                  f"ms)  [{name_limit}]")
-        del res, fk, fc
+            # reduce_kernel: the result in, the matches out, the status
+            # words (written once); the tail: the zeros past the count
+            status = 8 * (reduce.tiles(npad) + 1)
+            rows = {"reduce_kernel": {
+                        "ms": main_dev, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(4 * npad + 8 * c + status),
+                        "library_ms": nonzero_ms},
+                    "reduce_tail_kernel": {
+                        "ms": tail_dev, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms(8 * (npad - c)),
+                        "library_ms": None}}
+        del res
     del reduced
     torch.cuda.empty_cache()
-    row.update(err=err, launches=launches["reduce_flags_kernel"])
-    return row
+    for k, r in rows.items():
+        r.update(err=err, launches=launches[k])
+    return rows
 
 
 def surfaces_phase(dev) -> None:
@@ -1014,11 +1009,12 @@ def main() -> int:
             print(f"device time {c.name}: {c.kernel} {ours:.4f} ms, "
                   f"torch.gather's {len(lib)} kernel(s) "
                   f"{sum(lib.values()):.4f} ms  [{name_limit}]")
-    # G1 on E1 C/D, E2 and the E6 planes, and G4 on E4: the card's own time
-    # of the kernel and, for G1, of torch.take's (torch.profiler)
+    # G1 on E1 C/D, E2 and the E6 planes (every placement and the default
+    # one), and G4 on E4: the card's own time of the kernel and, for G1, of
+    # torch.take's (torch.profiler)
     for c in checked:
         if not (c.kernel == "align_kernel" or (
-                c.kernel == "word_gather_kernel"
+                c.kernel.startswith("word_gather")
                 and c.name[:2] in ("E1", "E2", "E6"))):
             continue
         wrapper = next(t["ms"] for t in timed if t["name"] == c.name)
@@ -1067,6 +1063,8 @@ def main() -> int:
 
     rep = {"word_gather_kernel": pick("word_gather_kernel", "snort_sieve",
                                       "G1 ldg"),
+           "word_gather_cluster_kernel": pick("word_gather_cluster_kernel",
+                                              "E2 take_grid", "cluster"),
            "tile_gather_kernel": pick("tile_gather_kernel", "E1 A"),
            "tile_gather_direct_kernel": pick("tile_gather_direct_kernel",
                                              "E5 a"),
@@ -1083,6 +1081,7 @@ def main() -> int:
         "chain_gather_kernel": "experiments/dyngather_micro.py:40",
         "align_kernel": "experiments/align_micro.py:63"}
     replaces["tile_gather_direct_kernel"] = replaces["tile_gather_kernel"]
+    replaces["word_gather_cluster_kernel"] = replaces["word_gather_kernel"]
 
     def row(name, source, replaces_, err, ms_, plain_ms, bound, library=None):
         return {"name": name, "route": "cuda",
@@ -1114,12 +1113,13 @@ def main() -> int:
             "pfac_tpu/backends/pallas_walk.py:664", k4_err, k4_ms, k4_plain,
             k4_bound),
     ]
-    r = row("reduce_flags_kernel", "compact.cu",
-            "pfac_tpu/backends/xla.py:476 (_reduce_rowgather, XLA)",
-            red["err"], red["ms"], red["plain_ms"], red["bound_ms"],
-            red["library_ms"])
-    r["launches"] = red["launches"]
-    kernels.append(r)
+    for k, r_ in red.items():
+        r = row(k, "reduce.cu",
+                "pfac_tpu/backends/xla.py:476 (_reduce_rowgather, XLA)",
+                r_["err"], r_["ms"], r_["plain_ms"], r_["bound_ms"],
+                r_["library_ms"])
+        r["launches"] = r_["launches"]
+        kernels.append(r)
     for k in gathers.LAUNCHES:
         r = row(k, "gather_micro.cu", replaces[k], g_err[k], rep[k]["ms"],
                 rep[k]["plain_ms"], rep[k]["bound_ms"], rep[k]["library_ms"])

@@ -7,29 +7,35 @@ contract: ``ids`` and ``positions`` are int32 arrays as long as the result,
 positions ascending, every entry past the count zero; the count is a 0-d
 int32 tensor on the device.
 
-On a CUDA tensor the host never waits for the device. Three launches:
-``reduce_flags_kernel`` (``csrc/compact.cu``) writes the bitmap of
-``result > 0`` and each 64K block's count; the compaction's
-``compact_scan_kernel`` and ``compact_kernel`` (``compact.py``) then list
-the positions with ``thresh = block + 1``, so that no block is left out,
-and ``compact_kernel`` gathers each position's ID as it writes it, into
-outputs zeroed beforehand. The count stays in the scan's offsets. The
-bitmap is padded with zero words to whole blocks, so any length works.
+On a CUDA tensor the host never waits for the device. Two launches
+(``csrc/reduce.cu``): ``reduce_kernel`` reads the result once in tiles of
+:data:`TILE` positions, finds each tile's offset by decoupled look-back
+and writes slots ``[0, count)`` of both outputs, the IDs from the values
+it loaded; ``reduce_tail_kernel`` reads the count on the device and writes
+the zeros of slots ``[count, npad)``. Each output word is written once, so
+nothing is zeroed beforehand. The look-back's status words live in a
+scratch buffer kept per device and stream; each call marks its words with
+a new epoch, so the buffer is never reset.
 
 The plain version (:func:`reduce_plain`: ``torch.nonzero`` and two indexed
-copies) serves CPU tensors and is the reference the card run checks.
+copies) serves CPU tensors and is the reference the card run checks;
+:func:`reduce_tiles_plain` repeats the kernels' own arithmetic (tile
+counts, look-back offsets, the zeros past the count) for the tests.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from . import compact
-from .sieve import BLOCK, pack_bits
 
-#: reduce_flags_kernel launches since the count was last reset (only where
-#: the kernel runs)
-LAUNCHES = {"reduce_flags_kernel": 0}
+#: launches of each reduce kernel since the counts were last reset (only
+#: where the kernels run)
+LAUNCHES = {"reduce_kernel": 0, "reduce_tail_kernel": 0}
+TILE = 8192        # positions a CTA of reduce_kernel takes (csrc/reduce.cu)
+_EPOCHS = 1 << 32  # the status words' epoch is 32 bits, 0 never used
+
+#: (device, stream) -> [status words, the last epoch used]
+_SCRATCH: dict[tuple[int, int], list] = {}
 
 
 def _check(result: torch.Tensor) -> int:
@@ -42,40 +48,33 @@ def _check(result: torch.Tensor) -> int:
     return npad
 
 
-def reduce_flags(result: torch.Tensor,
-                 block: int = BLOCK) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (bits, counts): the bitmap of ``result > 0`` (int32 words, padded
-    with zeros to whole blocks) and each block's count of set bits. A CPU
-    tensor runs :func:`reduce_flags_plain`; a CUDA tensor launches
-    reduce_flags_kernel."""
-    npad = _check(result)
-    dev = result.device
-    if dev.type == "cpu":
-        return reduce_flags_plain(result, block)
-    if dev.type != "cuda":
-        raise ValueError(f"no reduce for device {dev}")
-    nblocks = -(-npad // block)
-    bits = torch.empty(nblocks * block // 32, dtype=torch.int32, device=dev)
-    counts = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    rc = _build.load().pfac_reduce_flags(
-        dev.index or 0, result.data_ptr(), npad, block, nblocks,
-        bits.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["reduce_flags_kernel"] += 1
-    _build.check(rc, "reduce_flags_kernel")
-    return bits, counts
+def bound_bytes(npad: int) -> int:
+    """Bytes the reduce must move: the result read once (4 B a position)
+    and both outputs written in full (4 + 4 B a position), whatever the
+    count."""
+    return 12 * npad
 
 
-def reduce_flags_plain(result: torch.Tensor,
-                       block: int = BLOCK) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of reduce_flags_kernel, on the result's device."""
-    npad = _check(result)
-    nblocks = -(-npad // block)
-    flags = torch.zeros(nblocks * block, dtype=torch.uint8,
-                        device=result.device)
-    flags[:npad] = result > 0
-    counts = flags.view(nblocks, block).sum(1, dtype=torch.int32)
-    return pack_bits(flags), counts
+def tiles(npad: int) -> int:
+    return -(-npad // TILE)
+
+
+def _scratch(dev: torch.device, stream: int,
+             need: int) -> tuple[torch.Tensor, int]:
+    """-> (status words, epoch) for one call on `stream`: the ticket, then
+    a word a tile, none of them of the epoch returned. Zeroed when made or
+    grown and when the epochs wrap."""
+    key = (dev.index or 0, stream)
+    entry = _SCRATCH.get(key)
+    if entry is None or entry[0].numel() < need:
+        size = max(need, 2 * (0 if entry is None else entry[0].numel()))
+        entry = _SCRATCH[key] = [
+            torch.zeros(size, dtype=torch.int64, device=dev), 0]
+    entry[1] += 1
+    if entry[1] == _EPOCHS:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
 
 
 def reduce_from_dense(result: torch.Tensor):
@@ -89,12 +88,61 @@ def reduce_from_dense(result: torch.Tensor):
         return reduce_plain(result)
     if dev.type != "cuda":
         raise ValueError(f"no reduce for device {dev}")
-    bits, counts = reduce_flags(result)
-    ids = torch.zeros(npad, dtype=torch.int32, device=dev)
-    pos = torch.zeros(npad, dtype=torch.int32, device=dev)
-    _, count = compact.compact(bits, counts, BLOCK + 1, out=pos,
-                               values=result, ids=ids)
-    return ids, pos, count[0]
+    ids = torch.empty(npad, dtype=torch.int32, device=dev)
+    pos = torch.empty(npad, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status, epoch = _scratch(dev, stream, tiles(npad) + 1)
+    rc = _build.load().pfac_reduce(
+        dev.index or 0, result.data_ptr(), npad, ids.data_ptr(),
+        pos.data_ptr(), count.data_ptr(), status.data_ptr(), status.numel(),
+        epoch, stream)
+    LAUNCHES["reduce_kernel"] += 1
+    LAUNCHES["reduce_tail_kernel"] += 1
+    _build.check(rc, "reduce_kernel")
+    return ids, pos, count
+
+
+def tile_counts_plain(result: torch.Tensor) -> torch.Tensor:
+    """Each tile's count of positions with result > 0 (what a tile of
+    reduce_kernel publishes as its aggregate), int32[tiles]."""
+    npad = _check(result)
+    flags = torch.zeros(tiles(npad) * TILE, dtype=torch.int32,
+                        device=result.device)
+    flags[:npad] = result > 0
+    return flags.view(-1, TILE).sum(1, dtype=torch.int32)
+
+
+def tile_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
+    """The exclusive prefix sums of the tile counts: the offset each tile's
+    look-back must find, int32[tiles]."""
+    return (torch.cumsum(counts, 0, dtype=torch.int64) - counts).to(
+        torch.int32)
+
+
+def reduce_tiles_plain(result: torch.Tensor):
+    """Plain torch version of the two kernels, step by step: each tile's
+    matches at its offset plus their rank in the tile (ascending
+    positions), the IDs from the result, the count from the last tile's
+    inclusive prefix, then zeros over [count, npad). -> (ids, positions,
+    count) as :func:`reduce_from_dense`."""
+    npad = _check(result)
+    counts = tile_counts_plain(result)
+    offsets = tile_offsets_plain(counts)
+    count = int(offsets[-1] + counts[-1]) if npad else 0
+    flags = result > 0
+    at = torch.nonzero(flags).reshape(-1)
+    tile = at // TILE
+    first = torch.searchsorted(at, tile * TILE)      # the tile's first match
+    slot = offsets[tile].long() + (torch.arange(at.numel(),
+                                                device=at.device) - first)
+    ids = torch.empty_like(result)
+    pos = torch.empty_like(result)
+    ids[slot] = result[at]
+    pos[slot] = at.to(torch.int32)
+    ids[count:] = 0
+    pos[count:] = 0
+    return ids, pos, torch.tensor(count, dtype=torch.int32)
 
 
 def reduce_plain(result: torch.Tensor):

@@ -8,6 +8,7 @@
 // nine sites, and what they measure is where the table lives:
 //
 //   G1 word_gather_kernel   out[i] = T[idx[i]]                 (E1-C/D, E2, E6)
+//      word_gather_cluster_kernel   the same, T split over a cluster
 //   G2 tile_gather_kernel   take_along_axis on an int32 tile   (E1-A, E5, E6)
 //      tile_gather_direct_kernel   the same for small index sets
 //   G3 chain_gather_kernel  v = T[v], `chain` dependent loads  (E3)
@@ -15,14 +16,31 @@
 //
 // Placement (G1, G3): kSmem stages the whole table in dynamic shared memory
 // in every CTA (at most 232,448 B = 58,112 words, the opt-in limit of a
-// block; a larger table is refused, never demoted); kLdg reads it through
-// L1 (__ldg); kCg through L2 only (__ldcg). The launch is one wave of
-// persistent CTAs (occupancy x SMs), so a CTA stages its table once and then
-// strides over the indices.
+// block; a larger table is refused, never demoted); kPrefix (G1) stages
+// the table's first 58,112 words and reads the rest through L1, as the
+// walks place their tables (walk_common.cuh's SplitTab); kCluster (G1)
+// splits it in contiguous parts over the shared memory of a 2-CTA cluster
+// (4 CTAs where 2 do not hold it: up to 232,448 words), each CTA staging
+// its part and reading the others' through distributed shared memory
+// (cg::this_cluster().map_shared_rank); kLdg reads it through L1 (__ldg);
+// kCg from L2 only (__ldcg). The launch is one wave of persistent CTAs
+// (occupancy x SMs, or the clusters that fit), so a CTA stages its table
+// once and then strides over the indices; G1's staging placements take CTAs of 1,024 threads,
+// so that one CTA with a 227 KB table still keeps 32 warps of lookups in
+// flight on its SM.
+// Measured on the H100 (PERF.md): a random word costs L1 a tag lookup of
+// its own, about one a clock per SM, and a remote word of a cluster
+// partner about a third of that, so past one CTA's table the prefix
+// (most lookups from shared memory) beats both, and the cluster loses to
+// L1 at every size.
 //
 // Bound: 16M lookups stream 64 MB of indices in and 64 MB of results out,
-// ~0.04 ms at 3.35 TB/s; past that, the table's placement. Each thread keeps
-// kIlp independent lookups in flight (a chain step waits for the previous
+// ~0.04 ms at 3.35 TB/s; past that, the table's placement: a random word
+// from shared memory costs a bank access (32 a clock, less the conflicts),
+// from L1 a tag lookup. G1
+// moves indices and results as int4, four lookups a load and kVecRuns
+// loads a thread in flight (16 lookups), the ragged tail word by word; G3
+// keeps kIlp scalar lookups in flight (a chain step waits for the previous
 // one: the walks' pattern). Indices and results are streamed with __ldcs /
 // __stcs (evict first), so they do not push the table out of L1 and L2.
 //
@@ -39,27 +57,35 @@
 //
 // Indices must lie in [0, words) (the caller's contract, as for the walks'
 // positions): no kernel checks them.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kIlp = 4;                  // independent lookups per thread
+constexpr int kIlp = 4;                  // G2, G3: lookups per thread
+constexpr int kVecRuns = 4;              // G1: int4 index loads per thread
+constexpr int kMaxRanks = 4;             // G1: CTAs a table is split over
+constexpr int kWordThreads = 1024;       // G1 staging: 32 warps, 227 KB
 constexpr int kStrip = 32;               // G2: output columns per CTA
 constexpr int kStripRows = kThreads / kStrip;
 constexpr int32_t kSmemWords = 232448 / 4;
 constexpr int kAlignSpan = 32;           // G4: window offsets 0..31
 constexpr uint32_t kChainMul = 0x9E3779B1u;
 
-enum Placement { kSmem = 0, kLdg = 1, kCg = 2 };
+enum Placement { kSmem = 0, kCluster = 1, kLdg = 2, kCg = 3, kPrefix = 4 };
 
 template <int P>
 __device__ __forceinline__ int32_t fetch(const int32_t* __restrict__ table,
                                          const int32_t* s, uint32_t i) {
   if constexpr (P == kSmem) return s[i];
+  else if constexpr (P == kPrefix)
+    return i < static_cast<uint32_t>(kSmemWords) ? s[i] : __ldg(table + i);
   else if constexpr (P == kLdg) return __ldg(table + i);
   else return __ldcg(table + i);
 }
@@ -71,29 +97,102 @@ __device__ __forceinline__ void stage(int32_t* s, const int32_t* __restrict__ g,
   __syncthreads();
 }
 
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-word_gather_kernel(const int32_t* __restrict__ table, int32_t words,
-                   const int32_t* __restrict__ idx, int32_t n,
-                   int32_t* __restrict__ out) {
-  extern __shared__ int32_t smem[];
-  if constexpr (P == kSmem) stage(smem, table, words, threadIdx.x, kThreads);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kIlp;
-  for (int64_t e0 = static_cast<int64_t>(blockIdx.x) * kThreads * kIlp +
+// out[e] = fetch(idx[e]) for e < n by CTAs of kT threads: the int4 groups
+// [0, nvec) of idx and out (both 16-byte aligned), kVecRuns a thread in
+// flight, then the words [4 * nvec, n) one by one.
+template <int kT, typename Fetch>
+__device__ __forceinline__ void gather_words(Fetch fetch,
+                                             const int32_t* __restrict__ idx,
+                                             int32_t n, int32_t nvec,
+                                             int32_t* __restrict__ out) {
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  int4* out4 = reinterpret_cast<int4*>(out);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kT * kVecRuns;
+  for (int64_t g0 = static_cast<int64_t>(blockIdx.x) * kT * kVecRuns +
                     threadIdx.x;
-       e0 < n; e0 += stride) {
-    uint32_t v[kIlp];
+       g0 < nvec; g0 += stride) {
+    int4 v[kVecRuns];
 #pragma unroll
-    for (int k = 0; k < kIlp; ++k) {
-      const int64_t e = e0 + k * kThreads;
-      v[k] = e < n ? static_cast<uint32_t>(__ldcs(idx + e)) : 0u;
+    for (int u = 0; u < kVecRuns; ++u) {
+      const int64_t g = g0 + u * kT;
+      v[u] = g < nvec ? __ldcs(idx4 + g) : make_int4(0, 0, 0, 0);
     }
+    int4 r[kVecRuns];
 #pragma unroll
-    for (int k = 0; k < kIlp; ++k) {
-      const int64_t e = e0 + k * kThreads;
-      if (e < n) __stcs(out + e, fetch<P>(table, smem, v[k]));
+    for (int u = 0; u < kVecRuns; ++u)
+      r[u] = make_int4(fetch(static_cast<uint32_t>(v[u].x)),
+                       fetch(static_cast<uint32_t>(v[u].y)),
+                       fetch(static_cast<uint32_t>(v[u].z)),
+                       fetch(static_cast<uint32_t>(v[u].w)));
+#pragma unroll
+    for (int u = 0; u < kVecRuns; ++u) {
+      const int64_t g = g0 + u * kT;
+      if (g < nvec) __stcs(out4 + g, r[u]);
     }
   }
+  for (int64_t e = 4 * static_cast<int64_t>(nvec) +
+                   static_cast<int64_t>(blockIdx.x) * kT + threadIdx.x;
+       e < n; e += static_cast<int64_t>(gridDim.x) * kT)
+    __stcs(out + e, fetch(static_cast<uint32_t>(__ldcs(idx + e))));
+}
+
+// CTA size of G1's instance P: the staging placements keep one CTA of a
+// large table busy with 32 warps; L1 and L2 take many small CTAs, so that
+// a few lookups spread over the SMs.
+template <int P>
+constexpr int kWordCta =
+    P == kSmem || P == kPrefix ? kWordThreads : kThreads;
+
+template <int P>
+__global__ void __launch_bounds__(kWordCta<P>)
+word_gather_kernel(const int32_t* __restrict__ table, int32_t words,
+                   const int32_t* __restrict__ idx, int32_t n, int32_t nvec,
+                   int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  if constexpr (P == kSmem || P == kPrefix)
+    stage(smem, table, words < kSmemWords ? words : kSmemWords, threadIdx.x,
+          kWordThreads);
+  gather_words<kWordCta<P>>(
+      [=](uint32_t i) { return fetch<P>(table, smem, i); }, idx, n, nvec, out);
+}
+
+// The table in C contiguous parts of `part` words, part r in the shared
+// memory of the cluster's CTA r; word i lives in part i / part at offset
+// i % part (experiments/gathers.py::cluster_home).
+template <int C>
+__global__ void __launch_bounds__(kWordThreads)
+word_gather_cluster_kernel(const int32_t* __restrict__ table, int32_t words,
+                           int32_t part, const int32_t* __restrict__ idx,
+                           int32_t n, int32_t nvec,
+                           int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int32_t rank = static_cast<int32_t>(cluster.block_rank());
+  const int32_t lo = rank * part;
+  stage(smem, table + lo, words - lo < part ? words - lo : part, threadIdx.x,
+        kWordThreads);
+  cluster.sync();              // every part staged before any remote read
+  const int32_t* parts[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r)
+    parts[r] = r == rank ? smem
+                         : cluster.map_shared_rank(static_cast<int32_t*>(smem),
+                                                   r);
+  gather_words<kWordThreads>(
+      [=](uint32_t i) {
+        const int32_t* p = parts[0];
+        uint32_t off = i;
+#pragma unroll
+        for (int r = 1; r < C; ++r) {
+          if (i >= static_cast<uint32_t>(r * part)) {
+            p = parts[r];
+            off = i - static_cast<uint32_t>(r * part);
+          }
+        }
+        return p[off];
+      },
+      idx, n, nvec, out);
+  cluster.sync();              // the others may still read this CTA's part
 }
 
 // Hashed: the next index is a multiply-shift hash of the word and the index,
@@ -217,15 +316,17 @@ align_kernel(const int32_t* __restrict__ pos, const int32_t* __restrict__ raw,
            __ldg(src + (static_cast<int64_t>(w) << 10)));
 }
 
-// One wave of CTAs of `kernel` with `smem` dynamic bytes, at most `want`.
-// The occupancy query and the attribute call cost tens of microseconds of
+// One wave of CTAs of `kernel` with `smem` dynamic bytes, at most `want`
+// (for a cluster kernel, clusters of `ranks` CTAs: a multiple of it).
+// The occupancy query and the attribute calls cost tens of microseconds of
 // host time, more than a small case's kernel, so the wave's full size is
 // kept per kernel, device and shared-memory size (the last kEntries).
-// The attribute is raised once per kernel and device, to the block's
-// opt-in limit: it only permits, a launch still asks for what it needs.
+// The shared-memory attribute is raised once per kernel and device, to the
+// block's opt-in limit: it only permits, a launch still asks for what it
+// needs.
 template <typename Kernel>
 cudaError_t wave(Kernel kernel, int device, size_t smem, int64_t want,
-                 unsigned* grid) {
+                 unsigned* grid, int ranks = 1, int threads = kThreads) {
   struct Entry {
     const void* fn = nullptr;
     int device = -1;
@@ -253,35 +354,93 @@ cudaError_t wave(Kernel kernel, int device, size_t smem, int64_t want,
             static_cast<int>(sizeof(int32_t) * kSmemWords));
         if (err != cudaSuccess) return err;
       }
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
-      if (err != cudaSuccess) return err;
-      if (per_sm == 0) return cudaErrorInvalidConfiguration;
-      full = static_cast<int64_t>(per_sm) * sms;
+      if (ranks > 1) {
+        cudaLaunchConfig_t cfg = {};
+        cudaLaunchAttribute attr;
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = ranks;
+        attr.val.clusterDim.y = 1;
+        attr.val.clusterDim.z = 1;
+        cfg.gridDim = dim3(ranks);
+        cfg.blockDim = dim3(threads);
+        cfg.dynamicSmemBytes = smem;
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+        if (err != cudaSuccess) return err;
+        full = static_cast<int64_t>(clusters) * ranks;
+      } else {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            threads, smem);
+        if (err != cudaSuccess) return err;
+        full = static_cast<int64_t>(per_sm) * sms;
+      }
+      if (full == 0) return cudaErrorInvalidConfiguration;
       cache[next] = Entry{fn, device, smem, full};
       next = (next + 1) % kEntries;
     }
   }
-  *grid = static_cast<unsigned>(want < 1 ? 1 : (want < full ? want : full));
+  want = (want < 1 ? 1 : want) + ranks - 1;
+  want -= want % ranks;
+  *grid = static_cast<unsigned>(want < full ? want : full);
   return cudaSuccess;
 }
 
-int64_t lookup_ctas(int32_t n) {
-  return (static_cast<int64_t>(n) + kThreads * kIlp - 1) / (kThreads * kIlp);
+// CTAs of `threads` for n lookups at `per_thread` a thread.
+int64_t lookup_ctas(int32_t n, int per_thread, int threads = kThreads) {
+  return (static_cast<int64_t>(n) + threads * per_thread - 1) /
+         (threads * per_thread);
+}
+
+// Words a part of the table has in a cluster of `ranks` CTAs.
+int32_t part_words(int32_t words, int ranks) {
+  return (words + ranks - 1) / ranks;
 }
 
 template <int P>
 cudaError_t launch_word(int device, const int32_t* table, int32_t words,
-                        const int32_t* idx, int32_t n, int32_t* out,
-                        cudaStream_t stream) {
-  const size_t smem = P == kSmem ? sizeof(int32_t) * words : 0;
+                        const int32_t* idx, int32_t n, int32_t nvec,
+                        int32_t* out, cudaStream_t stream) {
+  const size_t smem =
+      P == kSmem ? sizeof(int32_t) * words
+                 : P == kPrefix ? sizeof(int32_t) * kSmemWords : 0;
   unsigned grid = 0;
-  cudaError_t err = wave(word_gather_kernel<P>, device, smem, lookup_ctas(n),
-                         &grid);
+  constexpr int threads = kWordCta<P>;
+  cudaError_t err = wave(word_gather_kernel<P>, device, smem,
+                         lookup_ctas(n, 4, threads), &grid, 1, threads);
   if (err != cudaSuccess) return err;
-  word_gather_kernel<P><<<grid, kThreads, smem, stream>>>(table, words, idx,
-                                                         n, out);
+  word_gather_kernel<P><<<grid, threads, smem, stream>>>(table, words, idx, n,
+                                                        nvec, out);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_word_cluster(int device, const int32_t* table,
+                                int32_t words, const int32_t* idx, int32_t n,
+                                int32_t nvec, int32_t* out,
+                                cudaStream_t stream) {
+  const int32_t part = part_words(words, C);
+  const size_t smem = sizeof(int32_t) * part;
+  unsigned grid = 0;
+  cudaError_t err = wave(word_gather_cluster_kernel<C>, device, smem,
+                         lookup_ctas(n, 4, kWordThreads), &grid, C,
+                         kWordThreads);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWordThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, word_gather_cluster_kernel<C>, table, words,
+                            part, idx, n, nvec, out);
 }
 
 template <int P, bool Hashed>
@@ -291,7 +450,7 @@ cudaError_t launch_chain(int device, const int32_t* table, int32_t words,
   const size_t smem = P == kSmem ? sizeof(int32_t) * words : 0;
   unsigned grid = 0;
   cudaError_t err = wave(chain_gather_kernel<P, Hashed>, device, smem,
-                         lookup_ctas(n), &grid);
+                         lookup_ctas(n, kIlp), &grid);
   if (err != cudaSuccess) return err;
   chain_gather_kernel<P, Hashed><<<grid, kThreads, smem, stream>>>(
       table, words, idx, n, chain, out);
@@ -311,13 +470,16 @@ cudaError_t dispatch_chain(int device, const int32_t* table, int32_t words,
 }  // namespace
 
 // G1. table: int32[words]; idx, out: int32[n], each idx in [0, words);
-// placement 0 smem (words <= 58,112), 1 ldg, 2 cg, else
-// cudaErrorInvalidValue. Launches on `stream`; returns the launch's error.
+// placement 0 smem (words <= 58,112), 1 cluster (words <= 4 x 58,112; 2
+// CTAs where half the table fits one, else 4), 2 ldg, 3 cg, 4 prefix, else
+// cudaErrorInvalidValue. Launches on `stream`; returns the launch's error
+// (a cluster launch the card refuses included).
 extern "C" int pfac_word_gather(int device, const void* table, int32_t words,
                                 const void* idx, int32_t n, int32_t placement,
                                 void* out, void* stream) {
-  if (words <= 0 || n < 0 || placement < kSmem || placement > kCg ||
-      (placement == kSmem && words > kSmemWords))
+  if (words <= 0 || n < 0 || placement < kSmem || placement > kPrefix ||
+      (placement == kSmem && words > kSmemWords) ||
+      (placement == kCluster && part_words(words, kMaxRanks) > kSmemWords))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -326,14 +488,30 @@ extern "C" int pfac_word_gather(int device, const void* table, int32_t words,
   const auto* i = static_cast<const int32_t*>(idx);
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  // int4 groups where both streams are 16-byte aligned, else word by word
+  const int32_t nvec = (reinterpret_cast<uintptr_t>(idx) |
+                        reinterpret_cast<uintptr_t>(out)) % 16
+                           ? 0 : n / 4;
   switch (placement) {
     case kSmem:
-      return static_cast<int>(launch_word<kSmem>(device, t, words, i, n, o, st));
+      err = launch_word<kSmem>(device, t, words, i, n, nvec, o, st);
+      break;
+    case kCluster:
+      err = part_words(words, 2) <= kSmemWords
+                ? launch_word_cluster<2>(device, t, words, i, n, nvec, o, st)
+                : launch_word_cluster<kMaxRanks>(device, t, words, i, n, nvec,
+                                                 o, st);
+      break;
     case kLdg:
-      return static_cast<int>(launch_word<kLdg>(device, t, words, i, n, o, st));
+      err = launch_word<kLdg>(device, t, words, i, n, nvec, o, st);
+      break;
+    case kPrefix:
+      err = launch_word<kPrefix>(device, t, words, i, n, nvec, o, st);
+      break;
     default:
-      return static_cast<int>(launch_word<kCg>(device, t, words, i, n, o, st));
+      err = launch_word<kCg>(device, t, words, i, n, nvec, o, st);
   }
+  return static_cast<int>(err);
 }
 
 // G2. tile: int32[rows, cols]; idx, out: int32[m, k], m * k < 2^31. Axis 1:
@@ -381,13 +559,15 @@ extern "C" int pfac_tile_gather(int device, const void* tile, int32_t rows,
 
 // G3. table: int32[words]; idx, out: int32[n], each idx in [0, words);
 // unless hashed, every table word too. placement 0 smem (words <= 58,112),
-// 1 ldg, 2 cg; chain >= 1. Else cudaErrorInvalidValue.
+// 2 ldg, 3 cg (G1's numbers; no cluster, no prefix); chain >= 1. Else
+// cudaErrorInvalidValue.
 extern "C" int pfac_chain_gather(int device, const void* table, int32_t words,
                                  const void* idx, int32_t n, int32_t chain,
                                  int32_t placement, int32_t hashed, void* out,
                                  void* stream) {
   if (words <= 0 || n < 0 || chain < 1 || placement < kSmem ||
-      placement > kCg || (placement == kSmem && words > kSmemWords))
+      placement > kCg || placement == kCluster ||
+      (placement == kSmem && words > kSmemWords))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

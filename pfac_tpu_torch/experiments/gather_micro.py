@@ -5,13 +5,17 @@ tables.
 E2 looks words up in the 257 x 257 pair table (66,049 words, padded to
 66,560) through G1. ``take_flat`` (8K indices), ``take_2d`` (the table as
 (520, 128), the indices as (64, 128): the same flat gather) and
-``take_grid_4M`` (4M indices) run with the table read through L1 (``ldg``)
-and from L2 (``cg``); at 266,240 B the table does not fit in shared memory,
-so ``smem`` is refused. The reference's XLA baseline
+``take_grid_4M`` (4M indices) run with its first 58,112 words in shared
+memory and the rest read through L1 (``prefix``, the placement G1 takes
+for it by default), split over a 2-CTA cluster's shared memory
+(``cluster``), read through L1 (``ldg``) and from L2 (``cg``); at 266,240 B
+the table does not fit in one CTA's shared memory, so ``smem`` is refused.
+The reference's XLA baseline
 (``try_xla_take_baseline``, the same lookups as ``take_flat``) becomes the
 plain version, ``table[idx]``, timed beside the kernel on every line.
 
-The arena sweep runs G1 in every placement that fits, and G3 with a chain
+The arena sweep runs G1 in every placement that fits and in its default
+one, and G3 with a chain
 of 4 hashed steps (the walks' pattern), with 16M uniform random word
 indices over the four arenas the port builds: the Snort ruleset's sieve
 and walk arenas and the 100K-signature ruleset's sieve and CSR arenas.
@@ -39,12 +43,10 @@ CHAIN = 4
 POSITIONS = 128 << 20      # K1's positions per call on a 128 MB corpus
 
 
-def _pair(label: str, dev, idx: np.ndarray,
-          placements=("smem", "ldg", "cg")) -> Iterator[Case | Refusal]:
+def _pair(label: str, dev, idx: np.ndarray) -> Iterator[Case | Refusal]:
     table = torch.arange(TABLE_PAD, dtype=torch.int32, device=dev)
     # the table is arange, so every lookup returns its index
-    yield from word_cases(label, table, torch.from_numpy(idx).to(dev), idx,
-                          placements)
+    yield from word_cases(label, table, torch.from_numpy(idx).to(dev), idx)
 
 
 def case_take_flat(dev, n_idx: int = TILE) -> Iterator[Case | Refusal]:

@@ -7,8 +7,12 @@ layout that makes a dynamic gather lowerable and fast; on the card every
 layout is the same indexed load, so four kernels serve all nine sites:
 
 * G1 :func:`word_gather`: ``out[i] = table[idx[i]]``, the table read from
-  shared memory (``"smem"``, at most :data:`SMEM_WORDS` words), through L1
-  (``"ldg"``) or from L2 only (``"cg"``);
+  shared memory (``"smem"``, at most :data:`SMEM_WORDS` words), its first
+  :data:`SMEM_WORDS` words from shared memory and the rest through L1
+  (``"prefix"``), split over the shared memory of a 2- or 4-CTA cluster
+  (``"cluster"``, at most :data:`CLUSTER_WORDS`; :func:`cluster_home`),
+  through L1 (``"ldg"``) or from L2 only (``"cg"``); :func:`word_placement`
+  picks one by size;
 * G2 :func:`tile_gather`: ``take_along_axis`` on an int32 tile, along
   axis 1 (``out[i, j] = tile[i % R, idx[i, j]]``) or axis 0
   (``out[i, j] = tile[idx[i, j], j]``), the tile staged in shared memory
@@ -33,12 +37,18 @@ from ..backends.probe import U32, mul32
 
 #: launches of each kernel since the counts were last reset (only where the
 #: kernel runs)
-LAUNCHES = {"word_gather_kernel": 0, "tile_gather_kernel": 0,
-            "tile_gather_direct_kernel": 0, "chain_gather_kernel": 0,
-            "align_kernel": 0}
-PLACEMENTS = ("smem", "ldg", "cg")
+LAUNCHES = {"word_gather_kernel": 0, "word_gather_cluster_kernel": 0,
+            "tile_gather_kernel": 0, "tile_gather_direct_kernel": 0,
+            "chain_gather_kernel": 0, "align_kernel": 0}
+PLACEMENTS = ("smem", "cluster", "ldg", "cg", "prefix")   # csrc's numbers
+CHAIN_PLACEMENTS = ("smem", "ldg", "cg")   # G3's
 TILE_PATHS = ("direct", "staged")        # G2
 SMEM_WORDS = 232_448 // 4     # the most dynamic shared memory a CTA may use
+CLUSTER_RANKS = (2, 4)        # G1: CTAs a cluster splits the table over
+CLUSTER_WORDS = CLUSTER_RANKS[-1] * SMEM_WORDS
+#: G1: the largest table "prefix" takes by default: up to 4 x SMEM_WORDS
+#: words it beat "ldg" on the H100, at 8 x they tied (PERF.md)
+PREFIX_WORDS = 4 * SMEM_WORDS
 CHAIN_MUL = 0x9E3779B1        # G3's hashed step
 STRIP = 32                    # G2, axis 0: tile columns staged per CTA
 ALIGN_SPAN = 32               # G4: window offsets 0..31
@@ -55,12 +65,57 @@ def _int32(a: torch.Tensor, b: torch.Tensor) -> torch.device:
     return a.device
 
 
-def _fits(placement: str, words: int) -> None:
+def _fits(placement: str, words: int, chain: bool = False) -> None:
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}")
     if placement == "smem" and words > SMEM_WORDS:
         raise ValueError(f"a {words}-word table does not fit in shared memory "
                          f"(at most {SMEM_WORDS} words)")
+    if chain and placement not in CHAIN_PLACEMENTS:
+        raise ValueError(f"G3 has no {placement} placement")
+    if placement == "cluster" and words > CLUSTER_WORDS:
+        raise ValueError(f"a {words}-word table does not fit in a cluster's "
+                         f"shared memory (at most {CLUSTER_WORDS} words)")
+
+
+def word_placement(words: int, lookups: int | None = None) -> str:
+    """G1's placement for `lookups` lookups (many, if None) into a table of
+    `words` words: ``"ldg"`` for no more lookups than a CTA would stage
+    words (as G2's direct path), else ``"smem"`` where one CTA holds the
+    table, ``"prefix"`` up to :data:`PREFIX_WORDS`, then ``"ldg"``. (On the
+    H100 the cluster split lost to "ldg" at every size: its remote reads
+    are slower than L1's; PERF.md.)"""
+    if lookups is not None and lookups <= min(words, SMEM_WORDS):
+        return "ldg"
+    if words <= SMEM_WORDS:
+        return "smem"
+    return "prefix" if words <= PREFIX_WORDS else "ldg"
+
+
+def word_kernel(words: int, placement: str | None = None,
+                lookups: int | None = None) -> str:
+    """The kernel G1 launches for a `words`-word table in `placement`
+    (:func:`word_placement`'s when None)."""
+    if (placement or word_placement(words, lookups)) == "cluster":
+        return "word_gather_cluster_kernel"
+    return "word_gather_kernel"
+
+
+def cluster_ranks(words: int) -> int:
+    """CTAs of the cluster that holds a `words`-word table: the fewest of
+    :data:`CLUSTER_RANKS` whose parts fit one CTA's shared memory."""
+    for ranks in CLUSTER_RANKS:
+        if -(-words // ranks) <= SMEM_WORDS:
+            return ranks
+    raise ValueError(f"a {words}-word table does not fit in a cluster")
+
+
+def cluster_home(idx: torch.Tensor, words: int) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """-> (rank, offset) of each word index in the cluster split: the table
+    in contiguous parts of ceil(words / ranks) words, part r in CTA r."""
+    part = -(-words // cluster_ranks(words))
+    return idx // part, idx % part
 
 
 _ENTRY: dict[str, Callable] = {}     # bound C entry points, looked up once
@@ -79,15 +134,21 @@ def _launch(kernel: str, entry: str, dev: torch.device, *args) -> None:
 
 
 def word_gather(table: torch.Tensor, idx: torch.Tensor,
-                placement: str = "ldg") -> torch.Tensor:
-    """G1: ``table[idx]``, shaped like idx; each idx in [0, table.numel())."""
+                placement: str | None = None) -> torch.Tensor:
+    """G1: ``table[idx]``, shaped like idx; each idx in [0, table.numel()).
+    `placement` forces one of :data:`PLACEMENTS` (:func:`word_placement`'s
+    when None)."""
     dev = _int32(table, idx)
+    if placement is None:
+        placement = word_placement(table.numel(), idx.numel())
     _fits(placement, table.numel())
     if dev.type == "cpu":
+        if placement == "cluster":
+            return word_gather_cluster_plain(table, idx)
         return word_gather_plain(table, idx)
     out = torch.empty_like(idx)
     if idx.numel():
-        _launch("word_gather_kernel", "pfac_word_gather", dev,
+        _launch(word_kernel(table.numel(), placement), "pfac_word_gather", dev,
                 table.data_ptr(), table.numel(), idx.data_ptr(), idx.numel(),
                 PLACEMENTS.index(placement), out.data_ptr())
     return out
@@ -96,6 +157,19 @@ def word_gather(table: torch.Tensor, idx: torch.Tensor,
 def word_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain torch version of G1."""
     return table[idx.long()]
+
+
+def word_gather_cluster_plain(table: torch.Tensor,
+                              idx: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of G1's cluster placement: each lookup read from
+    the part of the table its rank holds, at its offset there."""
+    words = table.numel()
+    part = -(-words // cluster_ranks(words))
+    parts = torch.zeros(cluster_ranks(words), part, dtype=table.dtype,
+                        device=table.device)
+    parts.view(-1)[:words] = table.reshape(-1)
+    rank, off = cluster_home(idx.long(), words)
+    return parts[rank, off]
 
 
 def tile_path(rows: int, cols: int, m: int, k: int, axis: int) -> str:
@@ -170,7 +244,7 @@ def chain_gather(table: torch.Tensor, idx: torch.Tensor, chain: int,
     hash of the word and v reduced to [0, W), as a walk hashes its state
     into its next probe (for tables whose words are not indices)."""
     dev = _int32(table, idx)
-    _fits(placement, table.numel())
+    _fits(placement, table.numel(), chain=True)
     if chain < 1:
         raise ValueError("chain must be >= 1")
     if dev.type == "cpu":

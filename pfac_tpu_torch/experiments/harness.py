@@ -51,27 +51,35 @@ def word_cases(label: str, table: torch.Tensor, idx: torch.Tensor,
                expect: np.ndarray, placements=gathers.PLACEMENTS,
                chain: int | None = None,
                hashed: bool = False) -> Iterator[Case | Refusal]:
-    """G1 (or G3, given `chain`) on one table, one case per placement; a
-    table too large for shared memory gives a Refusal there."""
-    for p in placements:
-        name = f"{label} {p}"
+    """G1 (or G3, given `chain`) on one table, one case per placement, and
+    for G1 a last case in the placement the wrapper picks by itself
+    (``<label> default (<placement>)``); a placement the table does not fit
+    gives a Refusal there."""
+    words = table.numel()
+    for p in (*placements, None) if chain is None else placements:
         library = None
         if chain is None:
-            kernel, lookups = "word_gather_kernel", idx.numel()
+            rule = gathers.word_placement(words, idx.numel())
+            name = (f"{label} {p}" if p is not None
+                    else f"{label} default ({rule})")
+            kernel = gathers.word_kernel(words, p or rule)
+            lookups = idx.numel()
             run = (lambda p=p: gathers.word_gather(table, idx, p))
             plain = (lambda: gathers.word_gather_plain(table, idx))
             library = gathers.word_gather_library(table, idx)
         else:
+            name = f"{label} {p}"
             kernel, lookups = "chain_gather_kernel", idx.numel() * chain
             run = (lambda p=p: gathers.chain_gather(table, idx, chain, p,
                                                     hashed))
             plain = (lambda: gathers.chain_gather_plain(table, idx, chain,
                                                         hashed))
-        if p == "smem" and table.numel() > gathers.SMEM_WORDS:
+        if ((p == "smem" and words > gathers.SMEM_WORDS)
+                or (p == "cluster" and words > gathers.CLUSTER_WORDS)):
             yield Refusal(name, run)
         else:
             yield Case(name, kernel, lookups, run, plain, expect,
-                       8 * idx.numel() + 4 * table.numel(), library)
+                       8 * idx.numel() + 4 * words, library)
 
 
 def tile_case(name: str, tile: torch.Tensor, idx: torch.Tensor, axis: int,

@@ -4,7 +4,8 @@
 * The lane-gather semantics check, ``take_along_axis(t, idx, axis=1)`` on
   one (8, 128) tile: G2 along axis 1.
 * The planes sweep, a word lookup from W = 128 ... 8192 words with 16M
-  indices: one G1 gather over the flat table, for every placement. The
+  indices: one G1 gather over the flat table, for every placement and
+  the default one. The
   reference's ``expand_planes`` is a TPU layout and has no counterpart.
 
     python -m pfac_tpu_torch.experiments.lanegather2_micro

@@ -9,7 +9,7 @@
 * C and D: a word lookup from a W-word table (W = 1024, 2048, 4096), which
   the TPU laid out as vregs (C) or as lane-replicated planes (D). On the
   card both are one G1 gather over the flat table, run for every
-  placement and printed once as "C/D".
+  placement and the default one and printed once as "C/D".
 
     python -m pfac_tpu_torch.experiments.lanegather_micro
 """

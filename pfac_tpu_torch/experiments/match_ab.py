@@ -116,20 +116,12 @@ def _clocks() -> str:
         text=True, timeout=60, check=True).stdout.strip()
 
 
-def worker(tree: str) -> int:
-    sys.path.insert(0, os.path.abspath(tree))
+def corpora(pt, dev) -> list:
+    """The six corpora of chip_smoke.py, made from their seeds with this
+    checkout's rulesets.py: [(name, Matcher of the tree `pt`, host bytes)]."""
     import numpy as np
-    import torch
 
-    import pfac_tpu_torch as pt
-
-    if not torch.cuda.is_available():
-        print("no GPU (torch.cuda.is_available() is false)", file=sys.stderr)
-        return 1
-    assert os.path.abspath(pt.__file__).startswith(os.path.abspath(tree))
     rs = _rulesets()
-    dev = torch.device("cuda:0")
-    t0 = time.perf_counter()
     pats = rs.snort_like_patterns()
     m = pt.Matcher(pats, device=dev)
     rng = np.random.default_rng(42)
@@ -144,14 +136,29 @@ def worker(tree: str) -> int:
     mm = pt.Matcher(mpats, device=dev)
     block = mm._engine().tile_rows * 128
     mixed = rs.mixed_density(np.random.default_rng(3), mpats, 16 * MB, block)
-    corpora = [("random", m, rand), ("defcon_like", m, defcon),
-               ("big_ruleset", mb, big),
-               ("all_match", m1, np.full(100 * MB, ord("a"), np.uint8)),
-               ("no_match", m1, np.full(100 * MB, ord("b"), np.uint8)),
-               ("mixed", mm, mixed)]
+    return [("random", m, rand), ("defcon_like", m, defcon),
+            ("big_ruleset", mb, big),
+            ("all_match", m1, np.full(100 * MB, ord("a"), np.uint8)),
+            ("no_match", m1, np.full(100 * MB, ord("b"), np.uint8)),
+            ("mixed", mm, mixed)]
+
+
+def worker(tree: str) -> int:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import pfac_tpu_torch as pt
+
+    if not torch.cuda.is_available():
+        print("no GPU (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    assert os.path.abspath(pt.__file__).startswith(os.path.abspath(tree))
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    cases = corpora(pt, dev)
     print(f"worker {tree}: set-up {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, mt, host in corpora:
+    for name, mt, host in cases:
         d = torch.from_numpy(host).to(dev)
         res = mt.match_device(d)
         ids = res[: host.shape[0]].to(torch.int64)

@@ -480,18 +480,56 @@ def _words(dev, w: int, n: int, seed: int):
     return table.to(dev), idx.to(dev)
 
 
-@pytest.mark.parametrize("placement", gathers.PLACEMENTS)
+@pytest.mark.parametrize("placement", [*gathers.PLACEMENTS, None])
 @pytest.mark.parametrize("w,n", [(1, 1), (3200, 1000), (58112, 70001),
-                                 (4096, 1 << 22)])
+                                 (4096, 1 << 22), (4096, (1 << 20) + 3)])
 def test_word_gather_on_card(dev, placement, w, n):
+    # every placement and the default one; a ragged tail of 3 lookups
     table, idx = _words(dev, w, n, w + n)
-    gathers.LAUNCHES["word_gather_kernel"] = 0
+    for k in gathers.LAUNCHES:
+        gathers.LAUNCHES[k] = 0
     got = gathers.word_gather(table, idx, placement)
-    assert gathers.LAUNCHES["word_gather_kernel"] == 1
+    assert gathers.LAUNCHES[gathers.word_kernel(w, placement, n)] == 1
+    assert sum(gathers.LAUNCHES.values()) == 1
     assert torch.equal(got, gathers.word_gather_plain(table, idx))
 
 
-@pytest.mark.parametrize("placement", ["ldg", "cg"])
+@pytest.mark.parametrize("placement", gathers.PLACEMENTS)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_word_gather_unaligned_on_card(dev, placement, offset):
+    # index and output streams not 16-byte aligned take the word path
+    table, idx = _words(dev, 4096, 100_003, offset)
+    view = idx[offset:]
+    assert torch.equal(gathers.word_gather(table, view, placement),
+                       gathers.word_gather_plain(table, view))
+
+
+@pytest.mark.parametrize("placement", ["cluster", "prefix", None])
+@pytest.mark.parametrize("w", [
+    2176,                       # the Snort sieve arena (8,704 B)
+    65208,                      # the Snort walk arena (260,832 B)
+    66560,                      # E2's pair table
+    82176,                      # the 100K sieve arena (328,704 B)
+    2 * gathers.SMEM_WORDS + 1,  # the first table of a 4-CTA cluster
+    gathers.CLUSTER_WORDS])
+def test_word_gather_cluster_on_card(dev, placement, w):
+    # the tables past one CTA's shared memory that a cluster holds, in the
+    # cluster, as a shared-memory prefix, and in the default placement
+    table, idx = _words(dev, w, (1 << 20) + 1, w + 7)
+    if placement is None:
+        assert gathers.word_placement(w) == ("smem" if w <= gathers.SMEM_WORDS
+                                             else "prefix")
+    for k in gathers.LAUNCHES:
+        gathers.LAUNCHES[k] = 0
+    got = gathers.word_gather(table, idx, placement)
+    kernel = gathers.word_kernel(w, placement, idx.numel())
+    assert gathers.LAUNCHES[kernel] == 1
+    assert sum(gathers.LAUNCHES.values()) == 1
+    assert torch.equal(got, gathers.word_gather_plain(table, idx))
+    assert torch.equal(got, gathers.word_gather_cluster_plain(table, idx))
+
+
+@pytest.mark.parametrize("placement", ["ldg", "cg", "prefix", None])
 @pytest.mark.parametrize("w", [66560, 147712, 10_000_000])
 def test_word_gather_large_tables_on_card(dev, placement, w):
     table, idx = _words(dev, w, 300_001, w)
@@ -511,7 +549,7 @@ def test_smem_limit_on_card(dev):
         gathers.chain_gather(big, idx, 1, "smem")
 
 
-@pytest.mark.parametrize("placement", gathers.PLACEMENTS)
+@pytest.mark.parametrize("placement", gathers.CHAIN_PLACEMENTS)
 @pytest.mark.parametrize("chain", [1, 4])
 @pytest.mark.parametrize("hashed", [False, True])
 @pytest.mark.parametrize("w", [264, 16384, 58112])
@@ -603,32 +641,38 @@ def test_lockstep_walker_on_card(dev, mode, n):
     assert m.match(host.tobytes()).tolist() == on_cpu[:n].tolist()
 
 
-@pytest.mark.parametrize("npad", [64, 65_536, 65_536 + 96, 3 * 65_536 + 4_000,
-                                  (1 << 22) + 131_072])
+@pytest.mark.parametrize("npad", [1, 5, 4096, 4097, 3 * 4096 + 77,
+                                  65_536 + 96, (1 << 22) + 131_075])
 @pytest.mark.parametrize("density", [0.0, 0.03, 1.0])
-def test_reduce_flags_kernel_matches_plain(dev, npad, density):
-    # the bitmap and block counts of result > 0, the last block cut
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reduce_kernel_matches_plain(dev, npad, density, offset):
+    # reduce_kernel and reduce_tail_kernel against the plain reduce: a cut
+    # last tile, count 0 and count npad, a result that is a view 4 bytes in
+    # (word loads); the ticket is left at 0 for the next call, which runs
+    # the same on the status words of the call before
     from pfac_tpu_torch.backends import reduce
     rng = np.random.default_rng(npad)
-    res = np.where(rng.random(npad) < density,
-                   rng.integers(1, 1 << 20, size=npad), 0).astype(np.int32)
-    r = torch.from_numpy(res).to(dev)
-    before = reduce.LAUNCHES["reduce_flags_kernel"]
-    bk, ck = reduce.reduce_flags(r)
-    assert reduce.LAUNCHES["reduce_flags_kernel"] == before + 1
-    bp, cp = reduce.reduce_flags_plain(r)
-    assert torch.equal(bk, bp) and torch.equal(ck, cp)
-    ids, pos, count = reduce.reduce_from_dense(r)
+    res = np.where(rng.random(npad + offset) < density,
+                   rng.integers(1, 1 << 20, size=npad + offset),
+                   0).astype(np.int32)
+    r = torch.from_numpy(res).to(dev)[offset:]
+    before = dict(reduce.LAUNCHES)
     want = reduce.reduce_plain(r)
-    assert count.dim() == 0 and int(count) == int(want[2])
-    assert torch.equal(ids, want[0]) and torch.equal(pos, want[1])
+    for _ in range(2):
+        ids, pos, count = reduce.reduce_from_dense(r)
+        assert count.dim() == 0 and int(count) == int(want[2])
+        assert torch.equal(ids, want[0]) and torch.equal(pos, want[1])
+        for status, _ in reduce._SCRATCH.values():
+            assert int(status[0]) == 0
+    assert {k: n - before[k] for k, n in reduce.LAUNCHES.items()} == {
+        "reduce_kernel": 2, "reduce_tail_kernel": 2}
 
 
 def test_reduce_does_not_synchronize(dev):
     # match_reduce_device on both engines under the sync debug mode: the
-    # reduce launches reduce_flags_kernel and both compaction kernels and
-    # never waits for the device (the lockstep walker's own match_device
-    # does, so its result is made first)
+    # reduce launches reduce_kernel and reduce_tail_kernel and never waits
+    # for the device (the lockstep walker's own match_device does, so its
+    # result is made first); the sieve engine's compaction runs once
     from pfac_tpu_torch.backends import reduce
     from pfac_tpu_torch.backends.xla import XlaMatcher
     pats, rng = _ruleset(77)
@@ -638,8 +682,8 @@ def test_reduce_does_not_synchronize(dev):
     m.match_reduce_device(data)                   # warm
     xres = XlaMatcher(m.automaton, device=dev).match_device(data)
     torch.cuda.synchronize()
-    counts = (reduce.LAUNCHES["reduce_flags_kernel"],
-              compact.LAUNCHES["compact_scan_kernel"],
+    counts = (reduce.LAUNCHES["reduce_kernel"],
+              reduce.LAUNCHES["reduce_tail_kernel"],
               compact.LAUNCHES["compact_kernel"])
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -647,9 +691,9 @@ def test_reduce_does_not_synchronize(dev):
         xgot = reduce.reduce_from_dense(xres)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert (reduce.LAUNCHES["reduce_flags_kernel"] - counts[0],
-            compact.LAUNCHES["compact_scan_kernel"] - counts[1],
-            compact.LAUNCHES["compact_kernel"] - counts[2]) == (2, 3, 3)
+    assert (reduce.LAUNCHES["reduce_kernel"] - counts[0],
+            reduce.LAUNCHES["reduce_tail_kernel"] - counts[1],
+            compact.LAUNCHES["compact_kernel"] - counts[2]) == (2, 2, 1)
     g_ids, g_pos, g_n = golden.reduce_result(
         golden.match_edges_batch(m.automaton, host))
     for ids, pos, cnt in (got, xgot):

@@ -109,7 +109,10 @@ def test_e1_word_lookup(ref, case):
     getattr(mod, case)(2048, n_idx=2048, tile_rows=8)
     (_, idx), out = mod.seen[0]
     port = list(lanegather_micro.case_word_lookup(2048, "cpu", n_idx=2048))
-    assert [c.name.split()[-1] for c in port] == list(gathers.PLACEMENTS)
+    # every placement forced, then the one the wrapper picks by itself
+    # (2,048 lookups into 2,048 words: no more than it would stage, so L1)
+    assert [c.name.split()[-1] for c in port] == [*gathers.PLACEMENTS,
+                                                  "(ldg)"]
     assert np.array_equal(_only(port), out)
 
 
@@ -123,9 +126,12 @@ def test_e2_pair_table(ref, case):
     port = (gather_micro.case_take_2d if case == "try_take_2d"
             else gather_micro.case_take_flat)
     items = list(port("cpu"))
-    # 266,240 B: too large for shared memory, so smem refuses
+    # 266,240 B: too large for one CTA's shared memory, so smem refuses;
+    # 8K lookups are fewer than a CTA would stage, so G1 reads it by L1
     assert isinstance(items[0], harness.Refusal)
     assert "shared memory" in harness.refuse(items[0])
+    assert items[-1].name.endswith("default (ldg)")
+    assert gathers.word_placement(table.size) == "prefix"
     got = _only(items)
     if case == "try_xla_take_baseline":
         got = items[1].plain().numpy()
@@ -223,6 +229,66 @@ def test_smem_refuses_oversized_tables():
         assert gathers.tile_gather(tile, few, axis).shape == few.shape
 
 
+@pytest.mark.parametrize("words,placement", [
+    (gathers.SMEM_WORDS, "smem"), (gathers.SMEM_WORDS + 1, "prefix"),
+    (gathers.PREFIX_WORDS, "prefix"), (gathers.PREFIX_WORDS + 1, "ldg")])
+def test_word_placement_rule(words, placement):
+    # one CTA's shared memory, then a prefix of the table there and the
+    # rest through L1, then L1 alone; the cluster only when forced
+    assert gathers.word_placement(words) == placement
+    assert gathers.word_placement(words, 16 << 20) == placement
+    # no more lookups than a CTA would stage: L1, staging nothing
+    assert gathers.word_placement(words, min(words, gathers.SMEM_WORDS)) == \
+        "ldg"
+    assert gathers.word_kernel(words) == "word_gather_kernel"
+    assert (gathers.word_kernel(words, "cluster")
+            == "word_gather_cluster_kernel")
+    idx = torch.tensor([0, words - 1, words // 2], dtype=torch.int32)
+    table = torch.arange(words, dtype=torch.int32)
+    assert gathers.word_gather(table, idx).tolist() == idx.tolist()
+    if words <= gathers.CLUSTER_WORDS:
+        ranks = 2 if words <= 2 * gathers.SMEM_WORDS else 4
+        assert gathers.cluster_ranks(words) == ranks
+        assert gathers.word_gather(table, idx, "cluster").tolist() == \
+            idx.tolist()
+
+
+@pytest.mark.parametrize("words", [7, 1000, gathers.SMEM_WORDS + 1,
+                                   gather_micro.TABLE_PAD,
+                                   2 * gathers.SMEM_WORDS + 3,
+                                   gathers.CLUSTER_WORDS])
+def test_cluster_split_equals_take(words):
+    # which CTA of the cluster holds word w, at which offset: contiguous
+    # parts of ceil(words / ranks), every word in exactly one part
+    rng = np.random.default_rng(words)
+    table = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=words,
+                                          dtype=np.int64).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, words, size=5000).astype(np.int32))
+    ranks = gathers.cluster_ranks(words)
+    part = -(-words // ranks)
+    assert part <= gathers.SMEM_WORDS
+    rank, off = gathers.cluster_home(torch.arange(words), words)
+    assert rank.max() < ranks and off.max() < part
+    assert torch.equal(rank * part + off, torch.arange(words))
+    got = gathers.word_gather_cluster_plain(table, idx)
+    assert torch.equal(got, table[idx.long()])
+    assert torch.equal(gathers.word_gather(table, idx, "cluster"), got)
+
+
+def test_cluster_refuses_what_it_cannot_hold():
+    idx = torch.zeros(4, dtype=torch.int32)
+    over = torch.zeros(gathers.CLUSTER_WORDS + 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cluster"):
+        gathers.word_gather(over, idx, "cluster")
+    with pytest.raises(ValueError, match="cluster"):
+        gathers.cluster_ranks(over.numel())
+    for placement in ("cluster", "prefix"):
+        with pytest.raises(ValueError, match=f"G3 has no {placement}"):
+            gathers.chain_gather(torch.zeros(64, dtype=torch.int32), idx, 1,
+                                 placement)
+    assert gathers.word_gather(over, idx).tolist() == [0] * 4   # ldg
+
+
 def test_wrappers_refuse_bad_input():
     t = torch.zeros(64, dtype=torch.int32)
     with pytest.raises(ValueError, match="placement"):
@@ -317,5 +383,5 @@ def test_every_case_runs_small_on_cpu():
         else:
             assert harness.check(item) == 0
         names.append(item.name)
-    assert len(names) == len(set(names)) == 54
+    assert len(names) == len(set(names)) == 90
     assert not any(gathers.LAUNCHES.values())      # no kernel on the CPU
