@@ -88,7 +88,18 @@ Phases, each on lines of its own:
    bound (12 B a position) and ``torch.nonzero(result > 0)``; the C-style
    API's ``PFAC_matchFromDevice`` / ``PFAC_matchFromDeviceReduce`` on CUDA
    tensors; ``tools/device_fuzz`` on two cases of each kind under a time
-   cap.
+   cap;
+11. the sharded matcher (``dist/sharding.py``): the sieve engine on 2 and
+   4 shards of the card over the random, DEFCON-like, big-ruleset and
+   all-match corpora, launch counts reset just before each call (every
+   kernel of the tier once a shard), equal in full to the single device
+   (results, count, match_reduce with int64 positions) and under
+   ``torch.cuda.set_sync_debug_mode("error")``; the longest pattern
+   planted across every shard boundary against the golden model; a
+   process group of one rank (NCCL) with 2 local shards; the walker engine
+   sharded; ``tools/bench_scaling``'s lines for 1, 2 and 4 shards on the
+   random and DEFCON-like corpora with the card's busy time a call; and
+   ``device_fuzz --sharded``.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
 reduce_kernel and reduce_tail_kernel with their launches on the reduce
@@ -404,6 +415,246 @@ def surfaces_phase(dev) -> None:
         rc = device_fuzz.main(["--cases", "2", "--seed", "7", "--kind", kind,
                                "--max-seconds", "8", "--device", str(dev)])
         assert rc == 0, f"device_fuzz {kind} failed"
+
+
+def path_launches() -> dict[str, int]:
+    """Each main-path kernel's launches since the counts were reset."""
+    from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, sieve,
+                                         walk)
+    return {**sieve.LAUNCHES, **compact.LAUNCHES,
+            "walk_kernel": walk.LAUNCHES,
+            "block_walk_kernel": block_walk.LAUNCHES,
+            "csr_walk_kernel": csr_walk.LAUNCHES}
+
+
+def reset_launches() -> None:
+    from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, sieve,
+                                         walk)
+    torch.cuda.synchronize()
+    for c in (sieve.LAUNCHES, compact.LAUNCHES):
+        for k in c:
+            c[k] = 0
+    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+
+
+def boundary_plants(host: np.ndarray, pat: bytes, shard_len: int,
+                    n: int) -> tuple[np.ndarray, list[int]]:
+    """A copy of `host` with `pat` planted across every shard boundary:
+    starting on the shard's last byte at odd boundaries (the match needs
+    len(pat) - 1 bytes of the halo), ending on the next shard's first byte
+    at even ones. -> (the copy, the boundaries)."""
+    out = host.copy()
+    p = np.frombuffer(pat, np.uint8)
+    bounds = list(range(shard_len, n - len(pat), shard_len))
+    for k, b in enumerate(bounds, 1):
+        s = b - 1 if k % 2 else b - len(pat) + 1
+        out[s:s + len(pat)] = p
+    return out, bounds
+
+
+def sharded_phase(dev, name_limit, corpora) -> None:
+    """Phase 11: the sharded matcher (``dist/sharding.py``) on the card.
+    The sieve engine on 2 and 4 shards of `dev` over the random,
+    DEFCON-like, big-ruleset and all-match corpora of phase 6: launch
+    counts reset just before each match_device and read just after (every
+    kernel of the tier once a shard), the shards' results concatenated
+    equal in full to the single-device match_device, the count to its
+    matching positions, match_reduce to the single device's
+    match_reduce_device (int64 positions), and match_device again under
+    torch.cuda.set_sync_debug_mode("error"); the longest pattern planted
+    across every shard boundary of the random and big-ruleset corpora,
+    against the golden model around each boundary and the single device in
+    full; a process group of one rank (NCCL) with 2 local shards, its halo
+    heads and count through NCCL; the walker engine sharded over SLICE
+    bytes; bench_scaling's lines for 1, 2 and 4 shards on the random and
+    DEFCON-like corpora, and the host's time a call split between the
+    engine and the sharded wrapper; device_fuzz --sharded, two cases of
+    each kind under a time cap."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pfac_tpu_torch.backends import golden
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    from pfac_tpu_torch.dist import multihost
+    from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
+    from pfac_tpu_torch.tools import bench_scaling, device_fuzz
+
+    t11 = time.perf_counter()
+    by_name = {c[0]: c for c in corpora}
+    picked = [by_name[k] for k in ("random", "defcon_like", "big_ruleset",
+                                   "all_match")]
+
+    def sharded(mt, mesh):
+        # the single device's engine, tables and all, serves every shard
+        sm = ShardedMatcher(mt.automaton, mesh=mesh, engine=mt._engine())
+        assert sm.engine == "sieve" and list(sm._engines.values()) == [
+            mt._engine()]
+        return sm
+
+    for nm, mt, d, host, *_ in picked:
+        e = mt._engine()
+        n = d.shape[0]
+        single = mt.match_device(d)
+        matching = int((single > 0).sum())
+        s_ids, s_pos, s_cnt = mt.match_reduce_device(d)
+        c = int(s_cnt)
+        s_ids, s_pos = s_ids[:c].cpu().numpy(), s_pos[:c].cpu().numpy()
+        for k in (2, 4):
+            sm = sharded(mt, make_data_mesh(devices=[dev] * k))
+            sl = sm._shard_len(n)
+            shards = sm._put(d, sl)
+            sm.match_device(shards, n)                     # warm
+            reset_launches()
+            res, cnt = sm.match_device(shards, n)
+            torch.cuda.synchronize()
+            per = {kk: v for kk, v in path_launches().items() if v}
+            assert sum(per.get(kk, 0) for kk in (
+                "sieve_smem_kernel", "sieve_cluster_kernel",
+                "sieve_global_kernel")) == k, (nm, per)
+            assert per["compact_scan_kernel"] == per["compact_kernel"] == k
+            assert per.get("walk_kernel", 0) == k * (e._walk is not None)
+            assert per.get("block_walk_kernel", 0) == \
+                k * (e._walk is not None)
+            assert per.get("csr_walk_kernel", 0) == k * (e._csr is not None)
+            cat = torch.cat(res)
+            assert torch.equal(cat[:n], single[:n]), f"{nm} {k} shards"
+            assert not cat[n:].any() and not single[n:].any()
+            assert cnt.dim() == 0 and int(cnt) == matching, (nm, int(cnt))
+            del cat, res
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again, _ = sm.match_device(shards, n)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            del again
+            ids, pos, cc = sm.match_reduce(host)
+            assert cc == c and pos.dtype == np.int64, (nm, cc, c)
+            assert np.array_equal(pos, s_pos) and np.array_equal(ids, s_ids)
+            del ids, pos
+            print(f"sharded {nm} {k} shards of {sl} bytes (halo {sm.halo}) "
+                  f"on one card: equal in full to the single device; count "
+                  f"{matching}; match_reduce equal ({c} matches, int64 "
+                  f"positions); no host synchronisation in match_device; "
+                  f"launches {json.dumps(per)}")
+            del sm, shards
+            torch.cuda.empty_cache()
+        del single
+
+    # the longest pattern across every boundary of 4 shards
+    for nm in ("random", "big_ruleset"):
+        _, mt, _, host, *_ = by_name[nm]
+        a = mt.automaton
+        pat = max(a.sorted_patterns, key=len)
+        assert len(pat) == a.max_pattern_len
+        sm = sharded(mt, make_data_mesh(devices=[dev] * 4))
+        n = host.shape[0]
+        sl = sm._shard_len(n)
+        planted, bounds = boundary_plants(host, pat, sl, n)
+        pd = torch.from_numpy(planted).to(dev)
+        res, _ = sm.match_device(sm._put(pd, sl), n)
+        cat = torch.cat(res)
+        assert torch.equal(cat[:n], mt.match_device(pd)[:n]), nm
+        look = a.max_pattern_len
+        got = cat.cpu().numpy()
+        for k, b in enumerate(bounds, 1):
+            lo, hi = b - 2 * look, b + 2 * look
+            want = golden.match_edges_batch(a, planted[lo:hi + look])
+            assert np.array_equal(got[lo:hi], want[:hi - lo]), (nm, b)
+            s = b - 1 if k % 2 else b - len(pat) + 1
+            assert want[s - lo] > 0, (nm, b)
+        print(f"sharded planted {nm}: a {len(pat)}-byte pattern (the longest;"
+              f" halo {sm.halo}) across each of {len(bounds)} boundaries, "
+              f"equal to golden around each and to the single device in "
+              f"full")
+        del sm, res, cat, pd
+
+    # a process group of one rank: heads and count through NCCL
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/store", 1, 0, [dev])
+        try:
+            mesh = multihost.global_mesh([dev, dev])
+            assert dist.get_backend(mesh.group) == "nccl"
+            for nm, mt, d, *_ in picked:
+                n = d.shape[0]
+                sm = sharded(mt, mesh)
+                shards = sm._put(d, sm._shard_len(n))
+                res, cnt = sm.match_device(shards, n)
+                single = mt.match_device(d)
+                cat = torch.cat(res)
+                assert torch.equal(cat[:n], single[:n]), f"nccl {nm}"
+                assert int(cnt) == int((single > 0).sum()), f"nccl {nm}"
+                print(f"sharded nccl {nm}: a one-rank NCCL group, 2 local "
+                      f"shards: equal in full to the single device, count "
+                      f"{int(cnt)} by all_reduce")
+                del sm, shards, res, cat, single
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the walker engine, sharded
+    _, mt, d, host, *_ = by_name["random"]
+    sm = ShardedMatcher(mt.automaton, mesh=make_data_mesh(devices=[dev] * 2),
+                        engine="xla")
+    want = XlaMatcher(mt.automaton, device=dev).match_device(d[:SLICE])
+    got = sm.match(host[:SLICE])
+    assert np.array_equal(got, want[:SLICE].cpu().numpy()), "sharded walker"
+    print(f"sharded walker: 2 shards over {SLICE // MB} MB of random equal "
+          f"to the single-device walker")
+    del sm, want
+
+    # bench_scaling's lines; then the card's busy time in a sharded call
+    # (torch.profiler: every kernel of the call runs once a shard, so a
+    # call's busy time is the shards times the sum of the kernels' medians)
+    for nm in ("random", "defcon_like"):
+        _, mt, d, host, *_ = by_name[nm]
+        for line in bench_scaling.scaling_lines(
+                mt.automaton, host, [1, 2, 4], f"{nm}_{CORPUS // MB}MB",
+                name_limit, engine=mt._engine(), data_dev=d):
+            print(f"scaling: {json.dumps(line)}")
+        # where a shard's host time goes: the engine on the shard buffer
+        # alone, then the sharded wrapper around it; the halo exchange
+        n, eng = d.shape[0], mt._engine()
+        sm1, sm4 = (sharded(mt, make_data_mesh(devices=[dev] * k))
+                    for k in (1, 4))
+        b1 = sm1._put(d, sm1._shard_len(n))
+        sl4 = sm4._shard_len(n)
+        b4 = sm4._put(d, sl4)
+        npad1 = npad_for(b1[0].shape[0], eng.tile_rows)
+        split = {
+            "single match_device": lambda: eng.match_device(d),
+            "engine on the 1-shard buffer": lambda: eng._run(b1[0], n, npad1),
+            "sharded _run, 1 shard": lambda: sm1._run(b1, n),
+            "halo exchange, 4 shards": lambda: sm4._exchange_halos(b4, sl4)}
+        ms = {k: bench_scaling._host_ms(f, [dev], reps=50)
+              for k, f in split.items()}
+        print(f"sharded host split {nm}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f" (host medians of 50)  [{name_limit}]")
+        del sm1, sm4, b1, b4
+        for k in (1, 2, 4):
+            sm = sharded(mt, make_data_mesh(devices=[dev] * k))
+            n = d.shape[0]
+            shards = sm._put(d, sm._shard_len(n))
+            rows, wall_ms = profiled(lambda: sm._run(shards, n), 5)
+            busy = k * sum(t for t, _, key in rows if "Memcpy" not in key)
+            print(f"breakdown sharded {nm} {k} shards: device busy "
+                  f"{busy:.4f} ms a call, host wall {wall_ms:.4f} ms a call "
+                  f"under the profiler (5 calls)  [{name_limit}]")
+            for t, c, key in rows[:6]:
+                print(f"  {t:.4f} ms  {c} recorded  {key[:64]}")
+            del sm, shards
+    torch.cuda.empty_cache()
+
+    for kind in device_fuzz.KINDS:
+        rc = device_fuzz.main(["--cases", "2", "--seed", "11", "--kind", kind,
+                               "--max-seconds", "5", "--device", str(dev),
+                               "--sharded", "--shards", "3"])
+        assert rc == 0, f"device_fuzz --sharded {kind} failed"
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
 
 def main() -> int:
@@ -1041,6 +1292,9 @@ def main() -> int:
     red = reduce_phase(dev, name_limit, corpora)
     surfaces_phase(dev)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+    # 11. the sharded matcher
+    sharded_phase(dev, name_limit, corpora)
 
     def pick(kernel: str, *keys: str) -> dict:
         return next(t for t in timed if t["kernel"] == kernel

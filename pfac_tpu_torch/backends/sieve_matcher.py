@@ -77,13 +77,17 @@ class SieveMatcher:
         self._csr = (None if self.csr_tables is None
                      else self.csr_tables.to_device(self.device))
 
-    def _run(self, data: torch.Tensor, n: int) -> torch.Tensor:
+    def _run(self, data: torch.Tensor, n: int,
+             npad: int | None = None) -> torch.Tensor:
+        """-> int32[npad] (default ``npad_for(n)``), 0 at and past n."""
         if n > _POS_LIMIT:
             raise PfacError(
                 PfacStatus.INVALID_PARAMETER,
                 "input exceeds the int32 position range; feed < 2 GiB chunks",
             )
-        return pipeline.run(data, n, npad_for(n, self.tile_rows),
+        if npad is None:
+            npad = npad_for(n, self.tile_rows)
+        return pipeline.run(data, n, npad,
                             self._sieve, self._walk, self._csr,
                             block=self.tile_rows * LANES)
 

@@ -280,13 +280,18 @@ class XlaMatcher:
             raise PfacError(PfacStatus.INVALID_PARAMETER,
                             "data must be a 1-D uint8 tensor")
         n = int(data_u8.shape[0])
-        max_len = self.automaton.max_pattern_len
-        num_tiles, padded = _pad_len(n, self.tile, max_len)
-        return walk_tiles(
-            self._step, self._pair_state, self._pair_match,
-            sentinel_pad(data_u8, padded),
-            num_final=self.automaton.num_final_states, max_len=max_len,
-            tile=self.tile, num_tiles=num_tiles)
+        num_tiles, padded = _pad_len(n, self.tile,
+                                     self.automaton.max_pattern_len)
+        return self._walk(sentinel_pad(data_u8, padded), num_tiles)
+
+    def _walk(self, inp: torch.Tensor, num_tiles: int) -> torch.Tensor:
+        """``walk_tiles`` over a sentinel-padded int16 input on this
+        device, with this matcher's tables."""
+        a = self.automaton
+        return walk_tiles(self._step, self._pair_state, self._pair_match, inp,
+                          num_final=a.num_final_states,
+                          max_len=a.max_pattern_len, tile=self.tile,
+                          num_tiles=num_tiles)
 
     def match(self, data) -> np.ndarray:
         """bytes in, int32[N] out (PFAC_matchFromHost analog)."""

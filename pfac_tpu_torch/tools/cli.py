@@ -14,7 +14,12 @@ Options:
   --tile N    start positions per tile
   --iters N   timed iterations (profile)
   --trace DIR write a torch.profiler trace of one iteration (profile)
-  --sharded   refused: distribution is not ported yet
+  --sharded   shard the input over the mesh of --device (every visible GPU
+              for cuda) and match_reduce there; one process enqueues
+              every shard, so over several cards this is slower than one
+              card (one process a card, dist.multihost, scales)
+  --shards N  shards of --sharded (default: one a visible GPU for cuda,
+              else 1)
 """
 from __future__ import annotations
 
@@ -42,10 +47,16 @@ def _build_matcher(args):
 
 def cmd_match(args) -> int:
     if args.sharded:
-        print("pfac_tpu_torch: --sharded is not ported yet (distribution "
-              "across devices comes in a later slice)", file=sys.stderr)
-        return 2
-    if args.stream:
+        from ..core.automaton import Automaton
+        from ..dist.sharding import ShardedMatcher, device_mesh
+
+        with open(args.input, "rb") as f:
+            data = f.read()
+        a = Automaton.from_pattern_file(args.patterns)
+        m = ShardedMatcher(a, mesh=device_mesh(args.device, args.shards),
+                           perf_mode="hash" if args.space else "dense")
+        ids, pos, n = m.match_reduce(data)
+    elif args.stream:
         # chunked scan: bounded memory for arbitrarily large inputs
         m = _build_matcher(args)
         sm = m.stream(min_batch=args.stream_chunk)
@@ -172,7 +183,12 @@ def main(argv=None) -> int:
             sp.add_argument("--head", type=int, default=20)
             sp.add_argument("--all", action="store_true")
             sp.add_argument("--sharded", action="store_true",
-                            help="not ported yet: refused")
+                            help="shard the input over the mesh of --device "
+                                 "(one process enqueues every shard: over "
+                                 "several cards slower than one card)")
+            sp.add_argument("--shards", type=int, default=None,
+                            help="shards of --sharded (default: one a "
+                                 "visible GPU for cuda, else 1)")
             sp.add_argument("--stream", action="store_true",
                             help="chunked scan via StreamMatcher (bounded memory)")
             sp.add_argument("--stream-chunk", type=int, default=16 << 20)

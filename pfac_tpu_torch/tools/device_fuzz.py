@@ -9,13 +9,16 @@ whose survivors walk deep, ``wide`` cases with more than 32,767 pattern IDs
 (the CSR tier) and ``allmatch`` cases where nearly every position survives
 (the dense-block escape, K3). Each case compares ``match_device`` and
 ``match_reduce_device`` (and, on some small plain cases, the lockstep
-walker's ``match_reduce_device``) with ``golden.match_edges_batch``.
+walker's ``match_reduce_device``) with ``golden.match_edges_batch``; with
+``--sharded`` also ``ShardedMatcher.match`` and ``match_reduce`` on the
+mesh of ``--device`` (``--shards`` shards; default one a visible GPU for
+``cuda``, else 1).
 
 Usage:  python -m pfac_tpu_torch.tools.device_fuzz [--cases N] [--seed S]
             [--kind plain|heavy|wide|allmatch] [--max-seconds T] [--device D]
-Exits non-zero on the first mismatch, printing a reproducer. ``--sharded``
-is refused until distribution is ported; the reference's
-``--windows-bitcast`` (a TPU workaround) is left out.
+            [--sharded [--shards K]]
+Exits non-zero on the first mismatch, printing a reproducer. The
+reference's ``--windows-bitcast`` (a TPU workaround) is left out.
 """
 from __future__ import annotations
 
@@ -124,7 +127,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sharded", action="store_true",
-                    help="not ported yet: refused")
+                    help="also the sharded matcher on the mesh of --device")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shards of --sharded (default: one a visible GPU "
+                         "for cuda, else 1)")
     ap.add_argument("--heavy", action="store_true",
                     help="ALL cases virus-dense (default: every 5th case)")
     ap.add_argument("--kind", choices=KINDS, default=None,
@@ -132,10 +138,6 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seconds", type=float, default=None,
                     help="start no case after this many seconds")
     args = ap.parse_args(argv)
-    if args.sharded:
-        print("device_fuzz: --sharded is not ported yet (distribution "
-              "across devices comes in a later slice)", file=sys.stderr)
-        return 2
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("device_fuzz: no GPU (torch.cuda.is_available() is false)",
@@ -143,8 +145,10 @@ def main(argv=None) -> int:
         return 1
 
     from ..backends import golden
+    from ..backends.sieve_matcher import SieveMatcher
     from ..backends.xla import XlaMatcher
     from ..core.automaton import Automaton
+    from ..dist.sharding import ShardedMatcher, device_mesh
     from ..runtime.handle import Matcher
 
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -171,7 +175,9 @@ def main(argv=None) -> int:
                  f"{args.seed} --cases {case + 1}"
                  + (f" --kind {args.kind}" if args.kind else "")
                  + (" --heavy" if args.heavy else "")
-                 + f" --device {args.device}")
+                 + f" --device {args.device}"
+                 + (" --sharded" if args.sharded else "")
+                 + (f" --shards {args.shards}" if args.shards else ""))
         if not np.array_equal(got, exp) or out[n:].any():
             bad = np.nonzero(got != exp)[0][:5]
             print(f"MISMATCH case={case} kind={kind} seed={args.seed} "
@@ -190,6 +196,19 @@ def main(argv=None) -> int:
                 print(f"REDUCE-DEVICE MISMATCH case={case} kind={kind} "
                       f"engine={type(eng).__name__} seed={args.seed} "
                       f"count={int(rd[2])} expected={gc}; reproduce: {again}")
+                return 1
+        if args.sharded:
+            mesh = device_mesh(args.device, args.shards)
+            eng = m._engine()       # its tables, not built again
+            sm = ShardedMatcher(a, mesh=mesh, engine=(
+                eng if isinstance(eng, SieveMatcher)
+                and mesh.devices[0].type == "cuda" else "auto"))
+            ids, pos, cnt = sm.match_reduce(data)
+            if not (np.array_equal(sm.match(data), exp) and cnt == gc
+                    and np.array_equal(pos, gp) and np.array_equal(ids, gi)):
+                print(f"SHARDED MISMATCH case={case} kind={kind} "
+                      f"engine={sm.engine} shards={sm.num_devices} "
+                      f"seed={args.seed}; reproduce: {again}")
                 return 1
         print(f"case {case:3d}: ok {kind}  "
               f"engine={type(m._engine()).__name__} "

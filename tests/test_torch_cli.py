@@ -62,9 +62,20 @@ def test_match_on_torch_cpu_equals_reference(files, capsys, platform):
 
 
 def test_sharded_is_refused(files, capsys):
+    """The name stays; the refusal went with distribution's port:
+    ``--sharded`` on one and on four CPU shards prints what the reference
+    CLI's ``--sharded`` prints (its 8-device CPU mesh)."""
     pat, inp = files
-    assert cli.main(["match", "-P", pat, "-I", inp, "--sharded"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    argv = ["match", "-P", pat, "-I", inp, "--sharded"]
+    assert ref_cli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert "num_matched = 5" in want
+    for shards in (1, 4):
+        assert cli.main(argv + ["--device", "cpu", "--shards",
+                                str(shards)]) == 0
+        captured = capsys.readouterr()
+        assert "not ported" not in captured.err
+        assert captured.out == want
 
 
 def test_profile_on_cpu(files, capsys, tmp_path):

@@ -701,3 +701,73 @@ def test_reduce_does_not_synchronize(dev):
         assert c == g_n and pos[:c].tolist() == g_pos.tolist()
         assert ids[:c].tolist() == g_ids.tolist()
         assert not ids[c:].any() and not pos[c:].any()
+
+
+def _sharded(m, dev, k):
+    from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
+    return ShardedMatcher(m.automaton, mesh=make_data_mesh(devices=[dev] * k),
+                          engine=m._engine())
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("tier", ["walk", "csr", "all_match"])
+def test_sharded_sieve_equals_single(dev, k, tier):
+    # the sieve engine on k shards of one card: the shards' results equal
+    # the single device's in full, the count its matching positions, and
+    # match_reduce its match_reduce_device, with a pattern across every
+    # boundary
+    n = 3 << 20
+    if tier == "all_match":
+        pats, host = [b"aaaa", b"a" * 40], np.full(n, ord("a"), np.uint8)
+        host[1000:1010] = ord("b")
+    else:
+        pats, rng = _ruleset(41) if tier == "walk" else _csr_ruleset()
+        host = _corpus(rng, pats, n)
+    m = pt.Matcher(pats, device=dev)
+    sm = _sharded(m, dev, k)
+    assert sm.engine == "sieve"
+    sl = sm._shard_len(n)
+    longest = max(pats, key=len)
+    for b in range(sl, n - len(longest), sl):
+        host[b - 1:b - 1 + len(longest)] = np.frombuffer(longest, np.uint8)
+    data = torch.from_numpy(host).to(dev)
+    single = m.match_device(data)
+    res, count = sm.match_device(sm._put(data, sl), n)
+    cat = torch.cat(res)
+    assert torch.equal(cat[:n], single[:n]) and not cat[n:].any()
+    assert int(count) == int((single > 0).sum())
+    ids, pos, c = sm.match_reduce(host)
+    s_ids, s_pos, s_c = m.match_reduce_device(data)
+    assert c == int(s_c) and pos.tolist() == s_pos[:c].tolist()
+    assert ids.tolist() == s_ids[:c].tolist()
+    want = golden.match_edges_batch(m.automaton, host[:sl + 4096])
+    assert np.array_equal(cat[:sl + 4096 - 300].cpu().numpy(),
+                          want[:sl + 4096 - 300])
+
+
+def test_sharded_match_device_does_not_synchronize(dev):
+    pats, rng = _ruleset(43)
+    m = pt.Matcher(pats, device=dev)
+    data = torch.from_numpy(_corpus(rng, pats, 4 << 20)).to(dev)
+    sm = _sharded(m, dev, 2)
+    shards = sm._put(data, sm._shard_len(data.shape[0]))
+    want, cnt = sm.match_device(shards, data.shape[0])     # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, got_cnt = sm.match_device(shards, data.shape[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got_cnt) == int(cnt)
+
+
+@pytest.mark.parametrize("n", [1, 5, 70_000])
+def test_sharded_shards_past_the_end(dev, n):
+    # an input shorter than the mesh: the shards past it launch nothing
+    pats, rng = _ruleset(45)
+    m = pt.Matcher(pats, device=dev)
+    host = _corpus(rng, pats, max(n, 200))[:n]
+    sm = _sharded(m, dev, 4)
+    assert np.array_equal(sm.match(host),
+                          golden.match_edges_batch(m.automaton, host))

@@ -129,6 +129,27 @@ def test_surfaces_with_jax_blocked():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_dist_with_jax_blocked():
+    # the sharded matcher, the multi-process glue, bench_scaling and the
+    # two-process smoke run import nothing of the reference
+    res = _run_blocked(
+        "from pfac_tpu_torch import Automaton\n"
+        "from pfac_tpu_torch.dist import multihost, sharding\n"
+        "from pfac_tpu_torch.tools import bench_scaling\n"
+        "from pfac_tpu_torch.experiments import multihost_smoke\n"
+        "a = Automaton.from_patterns([b'AB', b'ABG', b'BEDE', b'ED'])\n"
+        "mesh = sharding.make_data_mesh(devices=['cpu'] * 3)\n"
+        "for engine in ('xla', 'sieve'):\n"
+        "    sm = sharding.ShardedMatcher(a, mesh=mesh, tile=4, "
+        "engine=engine)\n"
+        "    assert sm.match(b'ABEDEDABG').tolist() == [1,3,4,0,4,0,2,0,0]\n"
+        "assert bench_scaling.main(['--mb', '1']) == 1\n"
+        "assert not any(k.split('.')[0] in BLOCKED for k in sys.modules)\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_blocker_really_blocks():
     res = _run_blocked("import jax\n")
     assert res.returncode != 0 and "jax is blocked" in res.stderr
