@@ -99,7 +99,23 @@ Phases, each on lines of its own:
    process group of one rank (NCCL) with 2 local shards; the walker engine
    sharded; ``tools/bench_scaling``'s lines for 1, 2 and 4 shards on the
    random and DEFCON-like corpora with the card's busy time a call; and
-   ``device_fuzz --sharded``.
+   ``device_fuzz --sharded``;
+12. the system's own entry points: ``tools/bench`` (its gates, among them
+   the fingerprint of the whole 128 MB result against
+   ``golden.match_dense_batch`` and its first 4 MB exactly, then its
+   timing; the line prefixed ``bench:``); ``tools/bench_matrix``'s seven
+   regimes (every gate first, then one line a regime prefixed
+   ``regime:``); on ``virus_dense_worst`` (8 MB of concatenated Snort-like
+   patterns, 396,847 survivors, no block dense enough to escape) the main
+   path's launches counted (K1, both compaction kernels, K2 and K3 once;
+   K3 walks no block), no ``aten::nonzero``, the call again under
+   ``torch.cuda.set_sync_debug_mode("error")``, K2's time on its
+   survivors as in phase 8 and on the first one and two survivors a lane
+   of its grid, and the e2e with the card's busy share; the survivor counts of the DEFCON-like and
+   virus-dense corpora against the reference's records; the reduce on
+   ``reduce_device_3pct``'s vector timed as in phase 10; then
+   ``tools/graft_entry``'s walker step (equal to the CPU's) and
+   ``dryrun_multichip(4)`` on the card.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
 reduce_kernel and reduce_tail_kernel with their launches on the reduce
@@ -309,6 +325,33 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> None:
     torch.cuda.empty_cache()
 
 
+def time_reduce(nm: str, res: torch.Tensor, c: int, name_limit: str):
+    """The device reduce on the result `res` with `c` matches: batched,
+    each kernel by the profiler, torch.nonzero(res > 0) and the plain
+    version; prints one line -> (batched, reduce_kernel, reduce_tail_kernel,
+    torch.nonzero, plain) ms."""
+    from pfac_tpu_torch.backends import reduce
+    from pfac_tpu_torch.experiments.gathers import cuda_ms
+    from pfac_tpu_torch.experiments.harness import BATCH
+
+    npad = res.shape[0]
+    run = lambda: reduce.reduce_from_dense(res)
+    ms = cuda_ms(run, batch=BATCH)
+    times = device_ms(run, need=tuple(reduce.LAUNCHES))
+    main_dev = kernel_ms(times, "reduce_kernel", ms)
+    tail_dev = kernel_ms(times, "reduce_tail_kernel", ms)
+    nonzero_ms = cuda_ms(lambda: torch.nonzero(res > 0), batch=BATCH)
+    plain_ms = cuda_ms(lambda: reduce.reduce_plain(res), reps=3, warmup=1)
+    bound = bound_ms(reduce.bound_bytes(npad))
+    print(f"time reduce {nm} ({npad} positions, {c} matches): "
+          f"{ms:.4f} ms batched = {100 * bound / ms:.1f}% of bound; "
+          f"reduce_kernel {main_dev:.4f} ms, reduce_tail_kernel "
+          f"{tail_dev:.4f} ms (profiler); bound {bound:.4f} ms (12 B a "
+          f"position); torch.nonzero(result > 0) {nonzero_ms:.4f} ms; "
+          f"plain {plain_ms:.3f} ms  [{name_limit}]")
+    return ms, main_dev, tail_dev, nonzero_ms, plain_ms
+
+
 def reduce_phase(dev, name_limit, corpora) -> dict:
     """Phase 10b: match_reduce_device on every corpus of phase 6, launch
     counts reset just before it, under torch.cuda.set_sync_debug_mode
@@ -318,8 +361,6 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
     (reduce.bound_bytes: 12 B a position) and torch.nonzero. -> the
     kernels' rows' numbers (on the DEFCON-like corpus)."""
     from pfac_tpu_torch.backends import reduce
-    from pfac_tpu_torch.experiments.gathers import cuda_ms
-    from pfac_tpu_torch.experiments.harness import BATCH
 
     for _, mt, d, *_ in corpora:                  # warm
         mt.match_reduce_device(d)
@@ -347,20 +388,8 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
         err = max(err, max_abs_err(ids, p_ids), max_abs_err(pos, p_pos))
         assert err == 0, f"the reduce != plain on {nm}"
         del p_ids, p_pos
-        run = lambda: reduce.reduce_from_dense(res)
-        ms = cuda_ms(run, batch=BATCH)
-        times = device_ms(run, need=tuple(reduce.LAUNCHES))
-        main_dev = kernel_ms(times, "reduce_kernel", ms)
-        tail_dev = kernel_ms(times, "reduce_tail_kernel", ms)
-        nonzero_ms = cuda_ms(lambda: torch.nonzero(res > 0), batch=BATCH)
-        plain_ms = cuda_ms(lambda: reduce.reduce_plain(res), reps=3, warmup=1)
-        bound = bound_ms(reduce.bound_bytes(npad))
-        print(f"time reduce {nm} ({npad} positions, {c} matches): "
-              f"{ms:.4f} ms batched = {100 * bound / ms:.1f}% of bound; "
-              f"reduce_kernel {main_dev:.4f} ms, reduce_tail_kernel "
-              f"{tail_dev:.4f} ms (profiler); bound {bound:.4f} ms (12 B a "
-              f"position); torch.nonzero(result > 0) {nonzero_ms:.4f} ms; "
-              f"plain {plain_ms:.3f} ms  [{name_limit}]")
+        ms, main_dev, tail_dev, nonzero_ms, plain_ms = time_reduce(
+            nm, res, c, name_limit)
         if nm == "defcon_like":
             # reduce_kernel: the result in, the matches out, the status
             # words (written once); the tail: the zeros past the count
@@ -655,6 +684,131 @@ def sharded_phase(dev, name_limit, corpora) -> None:
                                "--sharded", "--shards", "3"])
         assert rc == 0, f"device_fuzz --sharded {kind} failed"
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+
+def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
+    """Phase 12: tools/bench, tools/bench_matrix and tools/graft_entry on
+    the card; `walker_time` and `floor_text` are phase 8's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pfac_tpu_torch.backends import (block_walk, compact, pipeline,
+                                         sieve, walk)
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+    from pfac_tpu_torch.experiments.gathers import cuda_ms
+    from pfac_tpu_torch.tools import bench, bench_matrix, graft_entry
+
+    t12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"bench: {json.dumps(bench.run(dev))}", flush=True)
+    card = bench.card_of(dev)
+    t0 = time.perf_counter()
+    runs = bench_matrix.prepare(dev)
+    t_prep = time.perf_counter() - t0
+    for r in runs:
+        bench_matrix.check(r)
+    print(f"bench_matrix: {len(runs)} regimes ready in {t_prep:.1f} s; every "
+          f"gate passed in {time.perf_counter() - t0 - t_prep:.1f} s "
+          f"(virus_dense_worst equal in full to the plain pipeline and "
+          f"match_dense_batch; reduce_device_3pct equal in full to "
+          f"reduce_plain)", flush=True)
+    by = {r.name: r for r in runs}
+
+    # virus_dense_worst: the main path counted, then again where any host
+    # synchronisation raises
+    v = by["virus_dense_worst"]
+    eng, d = v.engine, v.data
+    n, block = d.shape[0], eng.tile_rows * 128
+    npad = npad_for(n, eng.tile_rows)
+    want = eng.match_device(d)
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eng.match_device(d)
+    torch.cuda.synchronize()
+    per = {k: c for k, c in path_launches().items() if c}
+    nonzero = sum(e.count for e in prof.key_averages()
+                  if e.key == "aten::nonzero")
+    base, bits, counts = sieve.sieve(d, n, npad, eng._sieve, block)
+    escaped = block_walk.escaped_blocks(counts, npad)
+    assert per == {"sieve_smem_kernel": 1, "compact_scan_kernel": 1,
+                   "compact_kernel": 1, "walk_kernel": 1,
+                   "block_walk_kernel": 1}, per
+    assert nonzero == 0 and escaped == 0, (nonzero, escaped)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = eng.match_device(d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(res, want) and torch.equal(again, want)
+    print(f"main path virus_dense_worst: {n // MB} MB equal to the plain "
+          f"pipeline and golden (gates above); launches {json.dumps(per)} "
+          f"(K3's grid reads the counts on the card and walks {escaped} of "
+          f"{counts.numel()} blocks: the fullest holds "
+          f"{int(counts.max())} survivors, the escape needs "
+          f"{block // block_walk.DENSE_ESCAPE_DIV}); aten::nonzero calls: "
+          f"{nonzero}; again under set_sync_debug_mode('error'): no host "
+          f"synchronisation, equal")
+    del again, res, want
+
+    pos, cnt = compact.compact(bits, counts,
+                               pipeline.threshold(eng._walk, block))
+    ms2, prof2, plain2, bound2, n2, deep2, floor2 = walker_time(
+        "walk_kernel", "virus_dense_worst", walk.walk, d, base, pos, cnt,
+        eng._walk, walk.walk_plain, v.regime.patterns)
+    plan2, grid2 = walk.launch_plan(eng._walk, dev)[1], walk.grid(eng._walk,
+                                                                  dev)
+    print(f"time K2 walk_kernel virus_dense_worst ({n2} survivors, {deep2} "
+          f"deep matches; grid {grid2} CTAs x 1024 threads, "
+          f"{min(grid2, n2)} in use; {4 * plan2} of "
+          f"{4 * eng._walk.arena.numel()} arena bytes resident): {ms2:.4f} "
+          f"ms batched, {prof2:.4f} ms profiler (plain {plain2:.3f} ms, "
+          f"bound {bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
+    # K2 by survivors a lane: the first 1x and 2x the grid's lanes, all
+    lanes, parts = grid2 * 1024, []
+    for k in sorted({min(lanes, n2), min(2 * lanes, n2), n2}):
+        cnt_k = torch.tensor([k], dtype=torch.int32, device=dev)
+        out = base.clone()
+        fn = (lambda out=out, cnt_k=cnt_k:
+              walk.walk(d, n, pos, out, eng._walk, cnt_k))
+        t = kernel_ms(device_ms(fn, need=("walk_kernel",)), "walk_kernel",
+                      cuda_ms(fn, batch=10))
+        parts.append(f"{k} ({k / lanes:.2f} a lane) {t:.4f} ms")
+    print(f"time K2 walk_kernel virus_dense_worst by survivors (profiler): "
+          f"{'; '.join(parts)}  [{name_limit}]")
+    del base, bits, counts, pos, cnt, out
+    ms_e = cuda_ms(lambda: eng.match_device(d))
+    rows, _ = profiled(lambda: eng.match_device(d), 5)
+    busy = sum(t for t, _, _ in rows)
+    print(f"time match_device virus_dense_worst {n // MB} MB: {ms_e:.4f} ms "
+          f"= {n / ms_e / 1e6:.2f} GB/s; device busy {busy:.4f} ms = "
+          f"{100 * busy / ms_e:.1f}% of it  [{name_limit}]")
+    for t, c, key in rows[:6]:
+        print(f"  {t:.4f} ms  {100 * t / busy:5.1f}%  {c} recorded  "
+              f"{key[:64]}")
+
+    surv = {nm: bench_matrix.survivors(by[nm]) for nm in (
+        "defcon_like_1.5pct", "virus_dense_worst", "big_ruleset_100k_defcon")}
+    print(f"survivors: {json.dumps(surv)} (the reference's records: "
+          f"98316, 396847, 4690)")
+    assert surv["defcon_like_1.5pct"] == 98_316, surv
+    assert surv["virus_dense_worst"] == 396_847, surv
+    # the reduce at 3% matches, as phase 10 times it on the main path's
+    # results
+    time_reduce("reduce_device_3pct", by["reduce_device_3pct"].data,
+                by["reduce_device_3pct"].extra["matches"], name_limit)
+    for r in runs:
+        print(f"regime: {json.dumps(bench_matrix.measure(r, card))}",
+              flush=True)
+    del runs, by, v, eng, d
+    torch.cuda.empty_cache()
+
+    fn, args = graft_entry.entry(dev)
+    out = fn(*args)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    assert torch.equal(out.cpu(), cpu_fn(*cpu_args)), "entry() != CPU"
+    print(f"entry(): ran on {dev}, out shape {tuple(out.shape)}, equal to "
+          f"the CPU's")
+    graft_entry.dryrun_multichip(4, [dev] * 4)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
 
 def main() -> int:
@@ -1295,6 +1449,9 @@ def main() -> int:
 
     # 11. the sharded matcher
     sharded_phase(dev, name_limit, corpora)
+
+    # 12. the system's own entry points
+    entry_points_phase(dev, name_limit, walker_time, floor_text)
 
     def pick(kernel: str, *keys: str) -> dict:
         return next(t for t in timed if t["kernel"] == kernel

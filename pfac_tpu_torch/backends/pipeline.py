@@ -44,6 +44,17 @@ from . import walk as walk_mod
 from .probe import Packed
 
 
+def threshold(walk_tabs: Packed | None, block: int,
+              escape: bool = True) -> int:
+    """The compaction's threshold: a block with at least this many
+    survivors is the escape's (K3's) and the compaction leaves it out.
+    Disarmed (no walk tables, or `escape=False`) no block reaches it, so
+    nothing is left out."""
+    if walk_tabs is not None and escape:
+        return block // block_walk_mod.DENSE_ESCAPE_DIV
+    return block + 1
+
+
 def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
         walk_tabs: Packed | None = None, csr_tabs: Packed | None = None, *,
         block: int = sieve_mod.BLOCK, escape: bool = True,
@@ -58,13 +69,11 @@ def run(data: torch.Tensor, n: int, npad: int, sieve_tabs: Packed,
     match, bits, counts = sieve(data, n, npad, sieve_tabs, block)
     if walk_tabs is None and csr_tabs is None:
         return match
-    armed = walk_tabs is not None and escape
-    if armed:
+    if walk_tabs is not None and escape:
         bw = (block_walk_mod.block_walk_plain if plain
               else block_walk_mod.block_walk)
         bw(data, n, counts, match, walk_tabs)
-    # no block reaches block + 1 survivors: disarmed, nothing is skipped
-    thresh = block // block_walk_mod.DENSE_ESCAPE_DIV if armed else block + 1
+    thresh = threshold(walk_tabs, block, escape)
     if plain:
         pos, count = compact_mod.compact_plain(bits, counts, thresh), None
         walk, csr = walk_mod.walk_plain, csr_walk_mod.csr_walk_plain

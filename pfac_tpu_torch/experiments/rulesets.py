@@ -10,6 +10,8 @@ a seed with numpy.
   clipped to 8-200, uniform random bytes).
 * :func:`planted_text`: printable text with a share of planted pattern
   copies (the DEFCON-like and big-ruleset corpora).
+* :func:`pattern_stream`: patterns drawn at random and concatenated, the
+  virus-dense worst case of ``tools_bench_matrix.py``.
 * :func:`mixed_density`: ``tests/test_pallas_sieve.py``'s mixed-density
   recipe at full block size.
 """
@@ -54,6 +56,17 @@ def planted_text(rng, pats, n: int, share: float) -> np.ndarray:
         buf[off:off + len(p)] = p
         placed += len(p)
     return np.frombuffer(buf, dtype=np.uint8)
+
+
+def pattern_stream(rng, pats, n: int) -> np.ndarray:
+    """`n` bytes of patterns drawn at random and concatenated (the last
+    one cut)."""
+    chunks, size = [], 0
+    while size < n:
+        p = pats[int(rng.integers(0, len(pats)))]
+        chunks.append(p)
+        size += len(p)
+    return np.frombuffer(bytearray(b"".join(chunks)[:n]), dtype=np.uint8)
 
 
 def mixed_density(rng, pats, n: int, block: int) -> np.ndarray:

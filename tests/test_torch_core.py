@@ -142,7 +142,8 @@ def test_golden_equals_reference(k):
     got, ref = golden.reduce_result(want), ref_golden.reduce_result(want)
     assert got[2] == ref[2] and all(np.array_equal(x, y)
                                     for x, y in zip(got[:2], ref[:2]))
-    assert not hasattr(golden, "match_dense_batch")
+    assert golden.match_dense_batch(a, data, chunk=1000).tolist() == \
+        ref_golden.match_dense_batch(r, data).tolist() == want.tolist()
 
 
 def test_status_equals_reference():

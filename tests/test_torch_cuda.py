@@ -6,6 +6,8 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ import pfac_tpu_torch as pt
 from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, golden,
                                      pipeline, sieve, sieve_matcher, walk)
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
+from pfac_tpu_torch.tools import bench, bench_matrix, graft_entry
 from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
                                         dyngather_micro, gather_micro,
                                         gathers, harness, lanegather2_micro,
@@ -771,3 +774,33 @@ def test_sharded_shards_past_the_end(dev, n):
     sm = _sharded(m, dev, 4)
     assert np.array_equal(sm.match(host),
                           golden.match_edges_batch(m.automaton, host))
+
+
+def test_bench_on_card(dev, capsys):
+    # its gates (conformance, the 4 KB sample, the fingerprint of the whole
+    # 16 MB result and its first 4 MB) pass before the line is printed
+    assert bench.main(["--mb", "16"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["corpus_mb"] == 16 and rec["slice_bytes"] == 4 << 20
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["power_limit"] and rec["value"] > 0
+
+
+def test_virus_dense_worst_on_card(dev):
+    # the whole 8 MB result equal to the plain pipeline and to
+    # match_dense_batch; every survivor goes to K2 (no block escapes)
+    (run,) = bench_matrix.prepare(dev, ["virus_dense_worst"])
+    bench_matrix.check(run)
+    assert bench_matrix.survivors(run) == 396_847
+    eng = run.engine
+    n = run.data.shape[0]
+    _, _, counts = sieve.sieve(run.data, n, npad_for(n), eng._sieve)
+    assert block_walk.escaped_blocks(counts, npad_for(n)) == 0
+
+
+def test_graft_entry_on_card(dev):
+    fn, args = graft_entry.entry(dev)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    assert torch.equal(fn(*args).cpu(), cpu_fn(*cpu_args))
+    assert graft_entry.dryrun_multichip(4).startswith(
+        "dryrun_multichip(4): OK")

@@ -150,6 +150,28 @@ def test_dist_with_jax_blocked():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_tools_with_jax_blocked():
+    # the three entry points (bench, bench_matrix, graft_entry) and the
+    # dense oracle import nothing of the reference
+    res = _run_blocked(
+        "from pfac_tpu_torch import Automaton\n"
+        "from pfac_tpu_torch.backends import golden\n"
+        "from pfac_tpu_torch.tools import bench, bench_matrix, graft_entry\n"
+        "a = Automaton.from_patterns([b'AB', b'ABG', b'BEDE', b'ED'])\n"
+        "assert golden.match_dense_batch(a, b'ABEDEDABG').tolist() == "
+        "[1,3,4,0,4,0,2,0,0]\n"
+        "assert graft_entry.main(['--device', 'cpu']) == 0\n"
+        "assert bench_matrix.main(['--device', 'cpu', '--scale', '1024', "
+        "'--regimes', 'reduce_device_3pct']) == 0\n"
+        "import torch\n"
+        "if not torch.cuda.is_available():\n"
+        "    assert bench.main([]) == 1\n"
+        "assert not any(k.split('.')[0] in BLOCKED for k in sys.modules)\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_blocker_really_blocks():
     res = _run_blocked("import jax\n")
     assert res.returncode != 0 and "jax is blocked" in res.stderr
