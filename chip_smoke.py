@@ -115,11 +115,36 @@ Phases, each on lines of its own:
    virus-dense corpora against the reference's records; the reduce on
    ``reduce_device_3pct``'s vector timed as in phase 10; then
    ``tools/graft_entry``'s walker step (equal to the CPU's) and
-   ``dryrun_multichip(4)`` on the card.
+   ``dryrun_multichip(4)`` on the card;
+13. one program launch a call (``backends/program.py``: the chain of
+   kernels as a CUDA graph, built once for each (device, npad); every
+   ``match_device`` of the phases above already went through it): the
+   host's time of one single-device call split (allocations, ctypes calls,
+   Python) through ``pipeline.run`` and through the program, and the
+   program's plan launched node by node from C beside the graph; on every
+   corpus of phase 6 and ``virus_dense_worst`` the program's result equal
+   in full to ``pipeline.run``'s and to golden on 4 MB, one program launch
+   and each kernel of the tier once a call, no ``aten::nonzero``; the first
+   call at a new length (single, reduce, the cluster placement, 2 shards)
+   under ``torch.cuda.set_sync_debug_mode("error")`` with its host time,
+   the program's build; e2e and busy share through both paths in turns,
+   and which of the program's kernels the profiler names;
+   ``match_reduce_device`` equal to ``reduce_plain`` and timed through
+   both paths; 1, 2 and 4 shards of the card through the sharded program
+   (one launch a call, ``count_kernel`` once) against the per-shard chain,
+   equal in full, with the count, in turns; ``count_kernel`` against its
+   plain version, ``torch.count_nonzero`` and its bound;
+   ``Matcher.stream`` over 16 MB of the DEFCON-like corpus in chunks of
+   three sizes and ``tools/cli.py match --stream`` against the whole
+   buffer and golden; two rulesets of the F1 regime
+   (``rulesets.f1_regime``, 20,000 and 30,000 patterns of 3-8 bytes,
+   nothing resident in shared memory) against ``golden.match_edges_batch``
+   in full.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
 reduce_kernel and reduce_tail_kernel with their launches on the reduce
-path, and G1-G4, each with its bound and library time), and last
+path, count_kernel with its launches on phase 13's sharded calls, and
+G1-G4, each with its bound and library time), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
 Integer IDs and positions are compared exactly (tolerance 0). A bound is
@@ -457,13 +482,14 @@ def path_launches() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, sieve,
-                                         walk)
+    from pfac_tpu_torch.backends import (block_walk, compact, count, csr_walk,
+                                         program, sieve, walk)
     torch.cuda.synchronize()
     for c in (sieve.LAUNCHES, compact.LAUNCHES):
         for k in c:
             c[k] = 0
     walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+    count.LAUNCHES = program.LAUNCHES = 0
 
 
 def boundary_plants(host: np.ndarray, pat: bytes, shard_len: int,
@@ -809,6 +835,407 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
           f"the CPU's")
     graft_entry.dryrun_multichip(4, [dev] * 4)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+
+def program_phase(dev, name_limit, corpora) -> dict:
+    """Phase 13: one program launch a call (``backends/program.py``, a CUDA
+    graph built once for each (device, npad)). The host's time of one
+    single-device call split through ``pipeline.run`` (the per-kernel
+    wrappers) and through the program (and the program's plan launched node
+    by node from C, ``pfac_program_launch_direct``); on every corpus of
+    phase 6 and ``virus_dense_worst`` the program's result equal in full to
+    ``pipeline.run``'s and to golden on a slice, one program launch and
+    each kernel once a call, no ``aten::nonzero``; a first call at a new
+    length (single, reduce, sharded, the cluster placement) under
+    ``set_sync_debug_mode("error")`` and its host time (the program's
+    build); e2e and busy share through both paths in turns (wrappers,
+    program, program, wrappers); ``match_reduce_device`` equal to
+    ``reduce_plain``; 1, 2 and 4 shards of the card through the sharded
+    program against the per-shard chain (``pipeline.run`` and the plain
+    count a shard), in turns, equal to the single device, with the count;
+    the count kernel against its plain version, ``torch.count_nonzero`` and
+    its bound; ``Matcher.stream`` over 16 MB of the DEFCON-like corpus in
+    chunks of three sizes and ``tools/cli.py match --stream``; two rulesets
+    of the F1 regime (``rulesets.f1_regime``: nothing resident in shared
+    memory) against ``golden.match_edges_batch``. -> the count kernel's
+    row's numbers."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch import _build
+    from pfac_tpu_torch.backends import (block_walk, compact, count, golden,
+                                         pipeline, program, reduce, sieve,
+                                         walk)
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+    from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
+    from pfac_tpu_torch.experiments import rulesets
+    from pfac_tpu_torch.experiments.gathers import cuda_ms
+    from pfac_tpu_torch.experiments.harness import BATCH
+    from pfac_tpu_torch.tools import bench_matrix, cli
+    from pfac_tpu_torch.tools.bench_scaling import _host_ms
+
+    t13 = time.perf_counter()
+    lib = _build.load()
+    by_name = {c[0]: c for c in corpora}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def wrappers(eng, d, n=None, npad=None):
+        n = d.shape[0] if n is None else n
+        return pipeline.run(d, n, npad or npad_for(n, eng.tile_rows),
+                            eng._sieve, eng._walk, eng._csr,
+                            block=eng.tile_rows * 128)
+
+    # the host's time of one call (the card idle at its start; nothing in a
+    # call waits for the card), split: allocations, ctypes calls (the C
+    # side and the launches included), Python (the rest)
+    _, mt, d, *_ = by_name["random"]
+    eng, n = mt._engine(), d.shape[0]
+    npad, block = npad_for(n), eng.tile_rows * 128
+    nblocks = npad // block
+    thresh = pipeline.threshold(eng._walk, block)
+    cap = compact.capacity(nblocks, block, thresh)
+    nsteps, k2_res = walk.launch_plan(eng._walk, dev)
+    _, look, tcap, k3_res = block_walk.launch_plan(
+        eng._walk, npad // block_walk.CHUNK, dev)
+    st, wt = eng._sieve, eng._walk
+    i32 = dict(dtype=torch.int32, device=dev)
+    match, bits = torch.empty(npad, **i32), torch.empty(npad // 32, **i32)
+    counts, offsets = torch.zeros(nblocks + 1, **i32), torch.empty(
+        nblocks + 1, **i32)
+    pos = torch.empty(cap, **i32)
+    res_off, total = sieve.residual_offset(st), offsets[nblocks:].data_ptr()
+
+    def pipeline_allocs():          # what pipeline.run's wrappers allocate
+        torch.empty(npad, **i32), torch.empty(npad // 32, **i32)
+        torch.zeros(nblocks + 1, **i32), torch.empty(nblocks + 1, **i32)
+        torch.empty(cap, **i32)
+
+    def pipeline_ctypes():          # its five launches, straight from ctypes
+        # (the counts are not zeroed again: K1's tile counter stays past
+        # the last tile, so the repeats' K1 takes no tile and leaves the
+        # counts and the bitmap as the first call wrote them)
+        lib.pfac_sieve(0, d.data_ptr(), n, npad, st.arena.data_ptr(),
+                       st.arena.numel(), res_off,
+                       st.desc.data_ptr(), 0, match.data_ptr(),
+                       bits.data_ptr(), counts.data_ptr(), block, stream)
+        lib.pfac_block_walk(0, d.data_ptr(), n, counts.data_ptr(), nblocks,
+                            block, thresh, wt.arena.data_ptr(),
+                            wt.arena.numel(), k3_res, wt.desc.data_ptr(),
+                            nsteps, look, tcap, match.data_ptr(), stream)
+        lib.pfac_compact_scan(0, counts.data_ptr(), nblocks, thresh,
+                              offsets.data_ptr(), stream)
+        lib.pfac_compact(0, bits.data_ptr(), counts.data_ptr(),
+                         offsets.data_ptr(), nblocks, block, thresh,
+                         pos.data_ptr(), stream)
+        lib.pfac_walk(0, d.data_ptr(), n, pos.data_ptr(),
+                      total, cap, wt.arena.data_ptr(),
+                      wt.arena.numel(), k2_res, wt.desc.data_ptr(), nsteps,
+                      match.data_ptr(), stream)
+
+    mt.match_device(d)
+    prog = eng._programs[(dev.index, npad, False)]
+    g = prog.geo
+    res = torch.empty(g.result_words, **i32)
+    scratch = torch.empty(g.scratch_bytes, dtype=torch.uint8, device=dev)
+    args = (prog.handle, d.data_ptr(), n, res.data_ptr(), scratch.data_ptr(),
+            None, 0, 0, stream)
+    kept = []
+
+    def keeping():                  # the caller keeps its last 3 results
+        kept.append(mt.match_device(d))
+        del kept[:-3]
+
+    split = {k: 1e3 * _host_ms(f, [dev], reps=200) for k, f in {
+        "pipeline.run": lambda: wrappers(eng, d),
+        "its allocations": pipeline_allocs,
+        "its ctypes launches": pipeline_ctypes,
+        "K1's wrapper (K1 enqueued at its end)":
+            lambda: sieve.sieve(d, n, npad, st, block),
+        "program": lambda: mt.match_device(d),
+        "program, the caller keeping its results": keeping,
+        "its allocations (2)": lambda: (
+            torch.empty(g.result_words, **i32),
+            torch.empty(g.scratch_bytes, dtype=torch.uint8, device=dev)),
+        "its ctypes call (the plan and the graph's launch)":
+            lambda: lib.pfac_program_launch(*args),
+        "the plan launched node by node from C":
+            lambda: lib.pfac_program_launch_direct(*args)}.items()}
+    del kept
+    py_pipe = split["pipeline.run"] - split["its allocations"] \
+        - split["its ctypes launches"]
+    py_prog = split["program"] - split["its allocations (2)"] \
+        - split["its ctypes call (the plan and the graph's launch)"]
+    print(f"single host split random {n // MB} MB (us a call, medians of "
+          f"200, the card idle at each start): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; Python: pipeline.run {py_pipe:.1f}, program {py_prog:.1f}"
+          f"  [{name_limit}]")
+    torch.cuda.synchronize()
+    assert torch.equal(wrappers(eng, d), mt.match_device(d))
+    del match, bits, counts, offsets, pos, res, scratch
+
+    # every corpus of phase 6 and virus_dense_worst: equal in full to
+    # pipeline.run, golden on a slice; one program launch, each kernel once
+    (virus,) = bench_matrix.prepare(dev, ["virus_dense_worst"])
+    every = [(nm, mt_._engine(), d_, host) for nm, mt_, d_, host, *_ in
+             corpora] + [("virus_dense_worst", virus.engine, virus.data,
+                          virus.regime.host)]
+    for nm, e, d_, host in every:
+        n_ = d_.shape[0]
+        e.match_device(d_)                          # warm
+        reset_launches()
+        before, c_before = program.LAUNCHES, dict(reduce.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = e.match_device(d_)
+        torch.cuda.synchronize()
+        per = {k: v for k, v in path_launches().items() if v}
+        nonzero = sum(ev.count for ev in prof.key_averages()
+                      if ev.key == "aten::nonzero")
+        want = {f"sieve_{sieve.placement_for(e._sieve)}_kernel": 1,
+                "compact_scan_kernel": 1, "compact_kernel": 1}
+        want.update({"walk_kernel": 1, "block_walk_kernel": 1}
+                    if e._walk is not None else {"csr_walk_kernel": 1})
+        assert per == want and program.LAUNCHES == before + 1, (nm, per)
+        assert nonzero == 0 and reduce.LAUNCHES == c_before, nm
+        assert torch.equal(got, wrappers(e, d_)), f"{nm}: program != wrappers"
+        golden_check(e.automaton, host, got, f"program {nm}", BIG_SLICE,
+                     0.0)
+        print(f"program {nm}: {n_ / MB:.2f} MB equal in full to pipeline.run;"
+              f" one program launch, launches {json.dumps(per)}; "
+              f"aten::nonzero calls: {nonzero}")
+    del got
+
+    # a first call at a new length: built and launched under the sync check
+    _, mb_, big_d, *_ = by_name["big_ruleset"]
+    new = 5 * MB + 7
+    firsts = {
+        "single": lambda: mt.match_device(d[:new]),
+        "match_reduce_device": lambda: mt.match_reduce_device(d[:new]),
+        "cluster (big ruleset)": lambda: mb_.match_device(big_d[:new]),
+        "sharded, 2 shards": None}
+    sm2 = ShardedMatcher(mt.automaton, mesh=make_data_mesh(devices=[dev] * 2),
+                         engine=eng)
+    sh2 = sm2._put(d[:new], sm2._shard_len(new))
+    firsts["sharded, 2 shards"] = lambda: sm2.match_device(sh2, new)
+    torch.cuda.synchronize()
+    built = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k, f in firsts.items():
+            t0 = time.perf_counter()
+            f()
+            built[k] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    warm = {k: _host_ms(f, [dev], reps=20) for k, f in firsts.items()}
+    print("program build: the first call at a new length (5 MB + 7) under "
+          "set_sync_debug_mode('error'), host ms (build, instantiate, "
+          "launch) against a warm call: " + ", ".join(
+              f"{k} {built[k]:.3f} vs {warm[k]:.4f}" for k in firsts)
+          + f"  [{name_limit}]")
+    assert torch.equal(mt.match_device(d[:new]), wrappers(eng, d[:new]))
+    assert torch.equal(mb_.match_device(big_d[:new]),
+                       wrappers(mb_._engine(), big_d[:new]))
+    ids, p_, c_ = mt.match_reduce_device(d[:new])
+    w_ids, w_pos, w_c = reduce.reduce_plain(mt.match_device(d[:new]))
+    assert int(c_) == int(w_c) and torch.equal(ids, w_ids) \
+        and torch.equal(p_, w_pos)
+    del sm2, sh2, ids, p_, w_ids, w_pos
+
+    # e2e and busy share through both paths, in turns; whether the profiler
+    # names each kernel of a replayed graph
+    for nm, e, d_, _ in every:
+        fns = {"pipeline.run": lambda: wrappers(e, d_),
+               "program": lambda: e.match_device(d_)}
+        turns = {k: [] for k in fns}
+        for k in ("pipeline.run", "program", "program", "pipeline.run"):
+            turns[k].append(cuda_ms(fns[k]))
+        tier = [f"sieve_{sieve.placement_for(e._sieve)}_kernel",
+                "compact_scan_kernel", "compact_kernel"] + (
+            ["walk_kernel", "block_walk_kernel"] if e._walk is not None
+            else ["csr_walk_kernel"])
+        parts, named = [], {}
+        for k, f in fns.items():
+            rows, _ = profiled(f, 5, need=tuple(tier))
+            busy = sum(t for t, _, _ in rows)
+            e2e = float(np.median(turns[k]))
+            named[k] = [kn for kn in tier
+                        if any(is_kernel(key, kn) for _, _, key in rows)]
+            parts.append(f"{k} {e2e:.4f} ms (turns "
+                         f"{', '.join(f'{t:.4f}' for t in turns[k])}), busy "
+                         f"{busy:.4f} = {100 * busy / e2e:.1f}%")
+        missing = [kn for kn in tier if kn not in named["program"]]
+        print(f"time {nm} {d_.shape[0] / MB:.0f} MB: {'; '.join(parts)}; "
+              f"the profiler names "
+              f"{len(named['program'])} of the program's {len(tier)} kernels"
+              + (f" (not {', '.join(missing)})" if missing else "")
+              + f"  [{name_limit}]")
+    torch.cuda.empty_cache()
+
+    # match_reduce_device, and 1, 2 and 4 shards, through both paths
+    count_launches = 0
+    for nm in ("random", "defcon_like", "big_ruleset"):
+        _, mt_, d_, *_ = by_name[nm]
+        e = mt_._engine()
+        n_ = d_.shape[0]
+        ids, p_, c_ = mt_.match_reduce_device(d_)
+        single = mt_.match_device(d_)
+        w_ids, w_pos, w_c = reduce.reduce_plain(single)
+        assert int(c_) == int(w_c) and torch.equal(ids, w_ids) \
+            and torch.equal(p_, w_pos), nm
+        del ids, p_, w_ids, w_pos
+        fns = {"wrappers": lambda: reduce.reduce_from_dense(wrappers(e, d_)),
+               "program": lambda: mt_.match_reduce_device(d_)}
+        turns = {k: [] for k in fns}
+        for k in ("wrappers", "program", "program", "wrappers"):
+            turns[k].append(cuda_ms(fns[k]))
+        print(f"time match_reduce_device {nm}: equal to reduce_plain; "
+              + "; ".join(f"{k} {float(np.median(v)):.4f} ms (turns "
+                          f"{', '.join(f'{t:.4f}' for t in v)})"
+                          for k, v in turns.items()) + f"  [{name_limit}]")
+        matching = int((single > 0).sum())
+        for k in (1, 2, 4):
+            sm = ShardedMatcher(e.automaton,
+                                mesh=make_data_mesh(devices=[dev] * k),
+                                engine=e)
+            sl = sm._shard_len(n_)
+            shards = sm._put(d_, sl)
+            npd = npad_for(sl + sm.halo, e.tile_rows)
+
+            def chain():            # the per-shard chain, as before programs
+                rs = [wrappers(e, s, sm._n_valid(i, sl, n_), npd)[:sl]
+                      for i, s in enumerate(shards)]
+                return rs, torch.stack([count.count_nonzero_plain(r)
+                                        for r in rs]).sum()
+
+            reset_launches()
+            res_, cnt = sm.match_device(shards, n_)
+            torch.cuda.synchronize()
+            per = {kk: v for kk, v in path_launches().items() if v}
+            assert program.LAUNCHES == 1 and count.LAUNCHES == 1, (nm, k)
+            count_launches += count.LAUNCHES
+            assert all(v == k for v in per.values()), (nm, k, per)
+            old, old_cnt = chain()
+            assert torch.equal(torch.cat(res_)[:n_], single[:n_]), (nm, k)
+            assert all(torch.equal(a_, b_) for a_, b_ in zip(res_, old))
+            assert int(cnt) == int(old_cnt) == matching, (nm, k)
+            del res_, old
+            fns = {"per-shard chain": chain,
+                   "program": lambda: sm.match_device(shards, n_)}
+            turns = {kk: [] for kk in fns}
+            for kk in ("per-shard chain", "program", "program",
+                       "per-shard chain"):
+                turns[kk].append(cuda_ms(fns[kk]))
+            host = {kk: _host_ms(f, [dev], reps=20) for kk, f in fns.items()}
+            print(f"sharded program {nm} {k} shards: equal in full to the "
+                  f"single device and to the per-shard chain, count "
+                  f"{matching}; launches {json.dumps(per)} in one program "
+                  f"launch, count_kernel once; "
+                  + "; ".join(f"{kk} {float(np.median(v)):.4f} ms (turns "
+                              f"{', '.join(f'{t:.4f}' for t in v)}), host "
+                              f"{host[kk]:.4f} ms" for kk, v in turns.items())
+                  + f"  [{name_limit}]")
+            del sm, shards
+        del single
+        torch.cuda.empty_cache()
+
+    # the count kernel on the random corpus's result (128 Mi positions)
+    _, mt_, d_, *_ = by_name["random"]
+    r = mt_.match_device(d_)
+    got = count.count_nonzero(r)
+    err = abs(int(got) - int(count.count_nonzero_plain(r)))
+    assert err == 0 and int(got) == int(torch.count_nonzero(r))
+    c_ms = cuda_ms(lambda: count.count_nonzero(r), batch=BATCH)
+    c_plain = cuda_ms(lambda: count.count_nonzero_plain(r), batch=BATCH)
+    c_lib = cuda_ms(lambda: torch.count_nonzero(r), batch=BATCH)
+    c_dev = kernel_ms(device_ms(lambda: count.count_nonzero(r),
+                                need=("count_kernel",)), "count_kernel", c_ms)
+    c_bound = bound_ms(count.bound_bytes(r.numel()))
+    print(f"time count_kernel {r.numel()} positions ({int(got)} nonzero): "
+          f"{c_ms:.4f} ms batched, {c_dev:.4f} ms profiler = "
+          f"{100 * c_bound / c_dev:.1f}% of bound; bound {c_bound:.4f} ms "
+          f"(4 B a position); plain (r != 0).sum() {c_plain:.4f} ms; "
+          f"torch.count_nonzero {c_lib:.4f} ms  [{name_limit}]")
+    del r
+
+    # Matcher.stream over 16 MB of the DEFCON-like corpus, chunks of three
+    # sizes, and the CLI's --stream, on the card
+    _, mt_, _, host, *_ = by_name["defcon_like"]
+    host16 = host[:16 * MB]
+    whole = mt_.match(host16)
+    sizes = [1 * MB + 17, 3 * MB + 101, 5 * MB + 3]
+    before, nprog = program.LAUNCHES, len(mt_._engine()._programs)
+    sm_ = mt_.stream()
+    parts, off, k = [], 0, 0
+    while off < host16.shape[0]:
+        chunk = host16[off:off + sizes[k % 3]].tobytes()
+        parts.append(sm_.feed(chunk))
+        off += len(chunk)
+        k += 1
+    parts.append(sm_.finish())
+    starts = [s_ for s_, _ in parts]
+    streamed = np.concatenate([o for _, o in parts])
+    assert starts == sorted(starts) and np.array_equal(streamed, whole)
+    print(f"stream: Matcher(device='cuda').stream() over {host16.shape[0] // MB}"
+          f" MB of defcon_like in {k} chunks of {sizes} bytes: equal to the "
+          f"whole-buffer match; {program.LAUNCHES - before} program launches,"
+          f" {len(mt_._engine()._programs) - nprog} new programs")
+    texts = [p for p in rulesets.snort_like_patterns() if b"\n" not in p]
+    with tempfile.TemporaryDirectory() as tmp:
+        pf, inf = os.path.join(tmp, "patterns"), os.path.join(tmp, "input")
+        with open(pf, "wb") as f:
+            f.write(b"\n".join(texts) + b"\n")
+        host16.tofile(inf)
+        outs = {}
+        for mode, extra in (("stream", ["--stream", "--stream-chunk",
+                                        str(3 * MB + 5)]), ("whole", [])):
+            buf = io.StringIO()
+            before = program.LAUNCHES
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["match", "-P", pf, "-I", inf, "--head", "50",
+                                 *extra]) == 0
+            outs[mode] = buf.getvalue()
+            assert program.LAUNCHES > before, mode
+        a_txt = pt.Automaton.from_pattern_file(pf)
+    assert outs["stream"] == outs["whole"], "cli --stream != cli"
+    gids, gpos, gn = golden.reduce_result(
+        golden.match_edges_batch(a_txt, host16))
+    head = outs["stream"].splitlines()
+    assert head[0] == f"num_matched = {gn}", head[0]
+    assert head[1:51] == [f"At position {int(p):4d}, match pattern {int(i)}"
+                          for p, i in zip(gpos[:50], gids[:50])]
+    print(f"cli match --stream on the card: {head[0]}, its output equal to "
+          f"the whole-buffer CLI's and its first 50 matches to golden")
+
+    # two rulesets of the F1 regime: nothing resident in shared memory
+    for seed, k, nb in ((20_000, 20_000, 2 * MB), (30_000, 30_000, 4 * MB)):
+        t0 = time.perf_counter()
+        pats, fhost = rulesets.f1_regime(seed, k, nb)
+        mf = pt.Matcher(pats, device="cuda")
+        e = mf._engine()
+        fd = torch.from_numpy(fhost).to(dev)
+        got = mf.match_device(fd)
+        assert torch.equal(got, wrappers(e, fd)), f"f1 regime {k}"
+        want = golden.match_edges_batch(mf.automaton, fhost)
+        assert np.array_equal(got[:nb].cpu().numpy(), want), f"f1 regime {k}"
+        k2r = walk.launch_plan(e._walk, dev)[1]
+        k3r = block_walk.launch_plan(e._walk, npad_for(nb) // block_walk.CHUNK,
+                                     dev)[3]
+        assert k2r == k3r == 0, (k2r, k3r)
+        ms = cuda_ms(lambda: mf.match_device(fd))
+        print(f"f1 regime {k} patterns of 3-8 bytes (seed {seed}) over "
+              f"{nb // MB} MB: equal in full to pipeline.run and to "
+              f"match_edges_batch ({int((got > 0).sum())} matches); arena "
+              f"words resident: K2 {k2r}, K3 {k3r}; match_device {ms:.4f} ms;"
+              f" set-up {time.perf_counter() - t0:.1f} s  [{name_limit}]")
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    return {"err": err, "ms": c_dev, "plain_ms": c_plain, "bound_ms": c_bound,
+            "library_ms": c_lib, "launches": count_launches}
 
 
 def main() -> int:
@@ -1453,6 +1880,9 @@ def main() -> int:
     # 12. the system's own entry points
     entry_points_phase(dev, name_limit, walker_time, floor_text)
 
+    # 13. one program launch a call
+    cnt = program_phase(dev, name_limit, corpora)
+
     def pick(kernel: str, *keys: str) -> dict:
         return next(t for t in timed if t["kernel"] == kernel
                     and all(k in t["name"] for k in keys))
@@ -1531,6 +1961,11 @@ def main() -> int:
                 r_["library_ms"])
         r["launches"] = r_["launches"]
         kernels.append(r)
+    r = row("count_kernel", "count.cu",
+            "pfac_tpu/dist/sharding.py:290 (count_fn, XLA)", cnt["err"],
+            cnt["ms"], cnt["plain_ms"], cnt["bound_ms"], cnt["library_ms"])
+    r["launches"] = cnt["launches"]
+    kernels.append(r)
     for k in gathers.LAUNCHES:
         r = row(k, "gather_micro.cu", replaces[k], g_err[k], rep[k]["ms"],
                 rep[k]["plain_ms"], rep[k]["bound_ms"], rep[k]["library_ms"])

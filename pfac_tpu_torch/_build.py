@@ -68,6 +68,23 @@ _SIGNATURES = {
     "pfac_chain_gather": [ctypes.c_int, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     # device, pos, raw, groups, w_out, w_raw, out, stream
     "pfac_align": [ctypes.c_int, _P, _P, _I, _I, _I, _P, _P],
+    # device, r, len, stride, nseg, out, stream
+    "pfac_count": [ctypes.c_int, _P, ctypes.c_int64, ctypes.c_int64, _I, _P,
+                   _P],
+    # spec, data[], n[], result, scratch, status, nstatus, epoch, count_len,
+    # program (out)
+    "pfac_program_create": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                            ctypes.c_uint32, ctypes.c_int64, _P],
+    # program, data, n, result, scratch, status, nstatus, epoch, stream
+    "pfac_program_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_int64,
+                            ctypes.c_uint32, _P],
+    # the same, each node launched on its own (a measurement)
+    "pfac_program_launch_direct": [_P, _P, _I, _P, _P, _P, ctypes.c_int64,
+                                   ctypes.c_uint32, _P],
+    # program, data[], n[], result, scratch, count_len, stream
+    "pfac_program_launch_shards": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
+    # program
+    "pfac_program_destroy": [_P],
 }
 
 

@@ -13,7 +13,7 @@ import torch
 
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
-from . import pipeline
+from . import pipeline, program
 from .csr_tables import CsrTables, build_csr_tables
 from .golden import _as_u8, reduce_result
 from .reduce import reduce_from_dense
@@ -76,10 +76,15 @@ class SieveMatcher:
                       else self.walk_tables.to_device(self.device))
         self._csr = (None if self.csr_tables is None
                      else self.csr_tables.to_device(self.device))
+        #: the CUDA programs (program.py), by (device index, npad, ...), as
+        #: the reference keeps a jitted pipeline for each (npad, cap, aligned)
+        self._programs: dict[tuple, program.Program] = {}
 
     def _run(self, data: torch.Tensor, n: int,
-             npad: int | None = None) -> torch.Tensor:
-        """-> int32[npad] (default ``npad_for(n)``), 0 at and past n."""
+             npad: int | None = None, reduce: bool = False):
+        """-> int32[npad] (default ``npad_for(n)``), 0 at and past n; with
+        `reduce` (CUDA only) its (ids, positions, count). On a CUDA device
+        one program launch (``program.py``), else ``pipeline.run``."""
         if n > _POS_LIMIT:
             raise PfacError(
                 PfacStatus.INVALID_PARAMETER,
@@ -87,16 +92,21 @@ class SieveMatcher:
             )
         if npad is None:
             npad = npad_for(n, self.tile_rows)
+        if self.device.type == "cuda":
+            return program.match(self, data, n, npad, reduce)
         return pipeline.run(data, n, npad,
                             self._sieve, self._walk, self._csr,
                             block=self.tile_rows * LANES)
 
-    def match_device(self, data_u8: torch.Tensor) -> torch.Tensor:
-        """uint8[N] on this device -> int32[npad_for(N)] (tail zeroed)."""
+    def _check_device(self, data_u8: torch.Tensor) -> None:
         if data_u8.device != self.device:
             raise PfacError(PfacStatus.INVALID_PARAMETER,
                             f"data is on {data_u8.device}, matcher on "
                             f"{self.device}")
+
+    def match_device(self, data_u8: torch.Tensor) -> torch.Tensor:
+        """uint8[N] on this device -> int32[npad_for(N)] (tail zeroed)."""
+        self._check_device(data_u8)
         return self._run(data_u8, int(data_u8.shape[0]))
 
     def flush_checks(self) -> None:
@@ -113,7 +123,11 @@ class SieveMatcher:
     def match_reduce_device(self, data_u8: torch.Tensor):
         """-> (ids, positions, count) on the device: npad-long int32 arrays,
         positions ascending, zeros past count; count a 0-d int32 tensor
-        (``reduce.py``; on the card it never waits for the device)."""
+        (``reduce.py``; on the card one program launch, the reduce's kernels
+        behind the pipeline's, and it never waits for the device)."""
+        if self.device.type == "cuda":
+            self._check_device(data_u8)
+            return self._run(data_u8, int(data_u8.shape[0]), reduce=True)
         return reduce_from_dense(self.match_device(data_u8))
 
     def match_reduce(self, data):

@@ -63,6 +63,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "launch.cuh"
 #include "probe.cuh"
 #include "walk_common.cuh"
 
@@ -439,8 +440,48 @@ int64_t smem_bytes(int32_t nsteps, int32_t look, int32_t cap,
 // the walk's lookahead in bytes, a multiple of 16, >= 4 + 2 * nsteps; cap:
 // room for a CTA's tile numbers, a multiple of 4, cap * SMs >= nblocks *
 // block / 8192. Else cudaErrorInvalidValue; a prefix that does not fit
-// shared memory fails the launch. Launches on `stream`; returns the
-// launch's cudaError_t.
+// shared memory fails the launch.
+cudaError_t pfac::block_walk_launch(int device, const void* data, int32_t n,
+                                    const void* counts, int32_t nblocks,
+                                    int32_t block, int32_t thresh,
+                                    const void* arena, int32_t words,
+                                    int32_t resident, const void* desc,
+                                    int32_t nsteps, int32_t look, int32_t cap,
+                                    void* out, Launch* l) {
+  *l = Launch{};
+  if (resident > words || block <= 0 || block % kChunk != 0 || nblocks < 0 || n < 0 ||
+      nsteps < 0 || resident < 0 || cap < 4 || cap % 4 != 0 || look % 16 != 0 ||
+      look < 4 + 2 * nsteps || reinterpret_cast<uintptr_t>(arena) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (nblocks == 0) return cudaSuccess;
+  const int64_t smem = smem_bytes(nsteps, look, cap, resident);
+  int64_t grid;
+  const bool all = resident == words;
+  cudaError_t err = pfac::persistent_grid(
+      all ? (const void*)block_walk_kernel<true>
+          : (const void*)block_walk_kernel<false>,
+      kThreads, device, smem, &grid);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = static_cast<int64_t>(nblocks) * (block / kChunk);
+  if (grid > tiles) grid = tiles;
+  if (cap * grid < tiles) return cudaErrorInvalidValue;
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* c = static_cast<const int32_t*>(counts);
+  const auto* a = static_cast<const int32_t*>(arena);
+  const auto* ds = static_cast<const int32_t*>(desc);
+  auto* o = static_cast<int32_t*>(out);
+  const auto g = static_cast<unsigned>(grid);
+  if (all)
+    l->set(block_walk_kernel<true>, g, kThreads, smem, d, n, c, nblocks,
+           block, thresh, a, resident, ds, nsteps, look, cap, o);
+  else
+    l->set(block_walk_kernel<false>, g, kThreads, smem, d, n, c, nblocks,
+           block, thresh, a, resident, ds, nsteps, look, cap, o);
+  return cudaSuccess;
+}
+
+// As block_walk_launch; launches on `stream` and returns the launch's
+// cudaError_t.
 extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
                                const void* counts, int32_t nblocks,
                                int32_t block, int32_t thresh,
@@ -448,35 +489,12 @@ extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
                                int32_t resident, const void* desc,
                                int32_t nsteps, int32_t look, int32_t cap,
                                void* out, void* stream) {
-  if (resident > words || block <= 0 || block % kChunk != 0 || nblocks < 0 || n < 0 ||
-      nsteps < 0 || resident < 0 || cap < 4 || cap % 4 != 0 || look % 16 != 0 ||
-      look < 4 + 2 * nsteps || reinterpret_cast<uintptr_t>(arena) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nblocks == 0) return 0;
-  const int64_t smem = smem_bytes(nsteps, look, cap, resident);
-  int64_t grid;
-  const bool all = resident == words;
-  err = pfac::persistent_grid(all ? (const void*)block_walk_kernel<true>
-                                  : (const void*)block_walk_kernel<false>,
-                              kThreads, device, smem, &grid);
+  pfac::Launch l;
+  err = pfac::block_walk_launch(device, data, n, counts, nblocks, block,
+                                thresh, arena, words, resident, desc, nsteps,
+                                look, cap, out, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = static_cast<int64_t>(nblocks) * (block / kChunk);
-  if (grid > tiles) grid = tiles;
-  if (cap * grid < tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* d = static_cast<const uint8_t*>(data);
-  const auto* c = static_cast<const int32_t*>(counts);
-  const auto* a = static_cast<const int32_t*>(arena);
-  const auto* ds = static_cast<const int32_t*>(desc);
-  auto* o = static_cast<int32_t*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid);
-  if (all)
-    block_walk_kernel<true><<<g, kThreads, smem, st>>>(
-        d, n, c, nblocks, block, thresh, a, resident, ds, nsteps, look, cap, o);
-  else
-    block_walk_kernel<false><<<g, kThreads, smem, st>>>(
-        d, n, c, nblocks, block, thresh, a, resident, ds, nsteps, look, cap, o);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -32,6 +32,8 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kFull = 0xFFFFFFFFu;
@@ -138,37 +140,61 @@ compact_kernel(const uint32_t* __restrict__ bits,
 
 }  // namespace
 
-// counts: int32[nblocks]; offsets: int32[nblocks + 1]. Launches on
-// `stream`; returns cudaGetLastError().
+// counts: int32[nblocks]; offsets: int32[nblocks + 1].
+cudaError_t pfac::compact_scan_launch(const void* counts, int32_t nblocks,
+                                      int32_t thresh, void* offsets,
+                                      Launch* l) {
+  *l = Launch{};
+  if (nblocks < 0) return cudaErrorInvalidValue;
+  l->set(compact_scan_kernel, 1, kScanThreads, 0,
+         static_cast<const int32_t*>(counts), nblocks, thresh,
+         static_cast<int32_t*>(offsets));
+  return cudaSuccess;
+}
+
+// bits: int32[nblocks * block / 32]; counts: int32[nblocks]; offsets: the
+// scan's; pos: int32[>= offsets[nblocks]]; block % 8192 == 0, else
+// cudaErrorInvalidValue.
+cudaError_t pfac::compact_launch(const void* bits, const void* counts,
+                                 const void* offsets, int32_t nblocks,
+                                 int32_t block, int32_t thresh, void* pos,
+                                 Launch* l) {
+  *l = Launch{};
+  if (block <= 0 || block % kBlockGrain != 0 || nblocks < 0)
+    return cudaErrorInvalidValue;
+  if (nblocks == 0) return cudaSuccess;
+  l->set(compact_kernel, static_cast<unsigned>(nblocks), kThreads, 0,
+         static_cast<const uint32_t*>(bits),
+         static_cast<const int32_t*>(counts),
+         static_cast<const int32_t*>(offsets), block, thresh,
+         static_cast<int32_t*>(pos));
+  return cudaSuccess;
+}
+
+// As compact_scan_launch; launches on `stream`, returns the launch's
+// cudaError_t.
 extern "C" int pfac_compact_scan(int device, const void* counts,
                                  int32_t nblocks, int32_t thresh,
                                  void* offsets, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nblocks < 0) return static_cast<int>(cudaErrorInvalidValue);
-  compact_scan_kernel<<<1, kScanThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(counts), nblocks, thresh,
-      static_cast<int32_t*>(offsets));
-  return static_cast<int>(cudaGetLastError());
+  pfac::Launch l;
+  err = pfac::compact_scan_launch(counts, nblocks, thresh, offsets, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }
 
-// bits: int32[nblocks * block / 32]; counts: int32[nblocks]; offsets: the
-// scan's; pos: int32[>= offsets[nblocks]]; block % 8192 == 0, else
-// cudaErrorInvalidValue. Launches on `stream`; returns cudaGetLastError().
+// As compact_launch; launches on `stream`, returns the launch's
+// cudaError_t.
 extern "C" int pfac_compact(int device, const void* bits, const void* counts,
                             const void* offsets, int32_t nblocks,
                             int32_t block, int32_t thresh, void* pos,
                             void* stream) {
-  if (block <= 0 || block % kBlockGrain != 0 || nblocks < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nblocks == 0) return 0;
-  compact_kernel<<<static_cast<unsigned>(nblocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(offsets), block, thresh,
-      static_cast<int32_t*>(pos));
-  return static_cast<int>(cudaGetLastError());
+  pfac::Launch l;
+  err = pfac::compact_launch(bits, counts, offsets, nblocks, block, thresh,
+                             pos, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -55,6 +55,7 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
 #include "walk_common.cuh"
 
 namespace {
@@ -209,31 +210,44 @@ csr_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
 // min(*count, cap) of them walked (count: a device int32, or null for all
 // cap), each < n; out: int32[>= n]; arena: int32, 16-byte aligned, every
 // step offset and the entry row's width a multiple of 4 words; desc: 1 +
-// nsteps rows of 4 int32, 16-byte aligned. Else cudaErrorInvalidValue.
-// Launches once on `stream`, whatever the count; returns the launch's
+// nsteps rows of 4 int32, 16-byte aligned. Else cudaErrorInvalidValue. One
+// launch, whatever the count.
+cudaError_t pfac::csr_walk_launch(int device, const void* data, int32_t n,
+                                  const void* pos, const void* count,
+                                  int32_t cap, const void* arena,
+                                  const void* desc, int32_t nsteps, void* out,
+                                  Launch* l) {
+  *l = Launch{};
+  if (n < 0 || cap < 0 || nsteps < 0 ||
+      reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(desc) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int64_t smem = 16LL * (1 + nsteps);
+  int64_t grid;
+  cudaError_t err = pfac::persistent_grid((const void*)csr_walk_kernel,
+                                          kThreads, device, smem, &grid);
+  if (err != cudaSuccess) return err;
+  l->set(csr_walk_kernel, static_cast<unsigned>(grid), kThreads, smem,
+         static_cast<const uint8_t*>(data), n,
+         static_cast<const int32_t*>(pos), static_cast<const int32_t*>(count),
+         cap, static_cast<const int32_t*>(arena),
+         static_cast<const int4*>(desc), nsteps, static_cast<int32_t*>(out));
+  return cudaSuccess;
+}
+
+// As csr_walk_launch; launches on `stream` and returns the launch's
 // cudaError_t.
 extern "C" int pfac_csr_walk(int device, const void* data, int32_t n,
                              const void* pos, const void* count, int32_t cap,
                              const void* arena, const void* desc,
                              int32_t nsteps, void* out, void* stream) {
-  if (n < 0 || cap < 0 || nsteps < 0 ||
-      reinterpret_cast<uintptr_t>(arena) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(desc) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t smem = 16LL * (1 + nsteps);
-  int64_t grid;
-  err = pfac::persistent_grid((const void*)csr_walk_kernel,
-                              kThreads, device, smem, &grid);
+  pfac::Launch l;
+  err = pfac::csr_walk_launch(device, data, n, pos, count, cap, arena, desc,
+                              nsteps, out, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  csr_walk_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, static_cast<const int32_t*>(pos),
-      static_cast<const int32_t*>(count), cap,
-      static_cast<const int32_t*>(arena), static_cast<const int4*>(desc),
-      nsteps, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }
 
 // The persistent grid pfac_csr_walk launches for `nsteps` steps into *grid

@@ -49,6 +49,8 @@
 #include <cstdint>
 #include <mutex>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr uint32_t kFull = 0xFFFFFFFFu;
@@ -313,40 +315,56 @@ int sm_count(int device) {
 // aligned; count: int32[1]; status: uint64[nstatus], nstatus >=
 // ceil(npad / 8192) + 1 (backends/reduce.py::TILE), its first word 0 and
 // no word of the epoch `epoch` (> 0): a new epoch for each call on the
-// buffer, and zeros before the epochs wrap. Launches reduce_kernel and
-// reduce_tail_kernel on `stream`; returns the first launch error,
-// cudaErrorInvalidValue on bad arguments.
-extern "C" int pfac_reduce(int device, const void* result, int32_t npad,
-                           void* ids, void* pos, void* count, void* status,
-                           int64_t nstatus, uint32_t epoch, void* stream) {
+// buffer, and zeros before the epochs wrap. reduce_kernel into `body`,
+// reduce_tail_kernel (behind it) into `tail`; cudaErrorInvalidValue on bad
+// arguments.
+cudaError_t pfac::reduce_launch(int device, const void* result, int32_t npad,
+                                void* ids, void* pos, void* count,
+                                void* status, int64_t nstatus, uint32_t epoch,
+                                Launch* body, Launch* tail) {
+  *body = Launch{};
+  *tail = Launch{};
   const int32_t ntiles = (npad + (kTile - 1)) / kTile;
   if (npad <= 0 || nstatus < ntiles + 1 || epoch == 0 ||
       reinterpret_cast<uintptr_t>(ids) % 16 ||
       reinterpret_cast<uintptr_t>(pos) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    return cudaErrorInvalidValue;
   const int sms = sm_count(device);
-  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const auto s = static_cast<cudaStream_t>(stream);
+  if (sms == 0) return cudaErrorInvalidDevice;
   const auto* r = static_cast<const int32_t*>(result);
   auto* i = static_cast<int32_t*>(ids);
   auto* p = static_cast<int32_t*>(pos);
   auto* c = static_cast<int32_t*>(count);
   auto* st = static_cast<uint64_t*>(status);
+  const auto g = static_cast<unsigned>(ntiles);
   if (reinterpret_cast<uintptr_t>(result) % 16 == 0)
-    reduce_kernel<true><<<ntiles, kThreads, 0, s>>>(r, npad, i, p, c, st,
-                                                    ntiles, epoch);
+    body->set(reduce_kernel<true>, g, kThreads, 0, r, npad, i, p, c, st,
+              ntiles, epoch);
   else
-    reduce_kernel<false><<<ntiles, kThreads, 0, s>>>(r, npad, i, p, c, st,
-                                                     ntiles, epoch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+    body->set(reduce_kernel<false>, g, kThreads, 0, r, npad, i, p, c, st,
+              ntiles, epoch);
   // a wave of 8 CTAs an SM, fewer for a short result
   const int64_t want = (static_cast<int64_t>(npad) / 4 + kTailThreads - 1) /
                        kTailThreads;
   const int64_t grid = want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms;
-  reduce_tail_kernel<<<static_cast<unsigned>(grid), kTailThreads, 0, s>>>(
-      c, npad, i, p);
-  return static_cast<int>(cudaGetLastError());
+  tail->set(reduce_tail_kernel, static_cast<unsigned>(grid), kTailThreads, 0,
+            c, npad, i, p);
+  return cudaSuccess;
+}
+
+// As reduce_launch; launches both kernels on `stream` and returns the
+// first launch error.
+extern "C" int pfac_reduce(int device, const void* result, int32_t npad,
+                           void* ids, void* pos, void* count, void* status,
+                           int64_t nstatus, uint32_t epoch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pfac::Launch body, tail;
+  err = pfac::reduce_launch(device, result, npad, ids, pos, count, status,
+                            nstatus, epoch, &body, &tail);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = body.launch(s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tail.launch(s));
 }

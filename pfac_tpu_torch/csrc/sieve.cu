@@ -53,6 +53,7 @@
 #include <cstdint>
 #include <mutex>
 
+#include "launch.cuh"
 #include "probe.cuh"
 
 namespace cg = cooperative_groups;
@@ -410,28 +411,25 @@ cudaError_t persistent_grid(int device, int32_t placement, int64_t smem,
 // match: int32[npad]; bits: int32[npad / 32]; counts: int32[npad / block
 // + 1], zeroed (the last word is the tile counter). npad % block == 0 and
 // block % 512 == 0, else cudaErrorInvalidValue; a placement whose tables
-// do not fit shared memory fails its launch. Launches on `stream`; returns
-// the launch's cudaError_t.
-extern "C" int pfac_sieve(int device, const void* data, int32_t n,
-                          int32_t npad, const void* arena, int32_t words,
-                          int32_t res_off, const void* desc, int32_t placement,
-                          void* match,
-                          void* bits, void* counts, int32_t block,
-                          void* stream) {
+// do not fit shared memory fails its launch.
+cudaError_t pfac::sieve_launch(int device, const void* data, int32_t n,
+                               int32_t npad, const void* arena, int32_t words,
+                               int32_t res_off, const void* desc,
+                               int32_t placement, void* match, void* bits,
+                               void* counts, int32_t block, Launch* l) {
+  *l = Launch{};
   if (block <= 0 || block % kWarpPos != 0 || npad % block != 0 || npad < 0 ||
       placement < kSmem || placement > kGlobal || res_off < 0 ||
       res_off > words)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (npad == 0) return 0;
+    return cudaErrorInvalidValue;
+  if (npad == 0) return cudaSuccess;
   if (placement == kCluster && res_off == words)   // no residuals to split
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   const int64_t smem = smem_bytes(placement, words, res_off);
   const int threads = placement == kCluster ? kClusterThreads : kThreads;
   int64_t grid;
-  err = persistent_grid(device, placement, smem, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = persistent_grid(device, placement, smem, &grid);
+  if (err != cudaSuccess) return err;
   const int64_t ntiles = (static_cast<int64_t>(npad) + threads * kPer - 1) /
                          (threads * kPer);
   if (grid > ntiles) grid = placement == kCluster ? (ntiles + 1) / 2 * 2 : ntiles;
@@ -442,17 +440,32 @@ extern "C" int pfac_sieve(int device, const void* data, int32_t n,
   auto* bt = static_cast<uint32_t*>(bits);
   auto* ct = static_cast<int32_t*>(counts);
   int32_t* ctr = ct + npad / block;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 g(static_cast<unsigned>(grid));
+  const auto g = static_cast<unsigned>(grid);
   if (placement == kSmem)
-    sieve_smem_kernel<<<g, kThreads, smem, s>>>(d, n, npad, a, words, res_off,
-                                                ds, mt, bt, ct, block, ctr);
+    l->set(sieve_smem_kernel, g, kThreads, smem, d, n, npad, a, words,
+           res_off, ds, mt, bt, ct, block, ctr);
   else if (placement == kCluster)
-    sieve_cluster_kernel<<<g, kClusterThreads, smem, s>>>(
-        d, n, npad, a, words, res_off, ds, mt, bt, ct, block, ctr);
+    l->set(sieve_cluster_kernel, g, kClusterThreads, smem, d, n, npad, a,
+           words, res_off, ds, mt, bt, ct, block, ctr);
   else
-    sieve_global_kernel<<<g, kThreads, smem, s>>>(d, n, npad, a, words,
-                                                  res_off, ds, mt, bt, ct,
-                                                  block, ctr);
-  return static_cast<int>(cudaGetLastError());
+    l->set(sieve_global_kernel, g, kThreads, smem, d, n, npad, a, words,
+           res_off, ds, mt, bt, ct, block, ctr);
+  return cudaSuccess;
+}
+
+// As sieve_launch; launches on `stream` and returns the launch's
+// cudaError_t.
+extern "C" int pfac_sieve(int device, const void* data, int32_t n,
+                          int32_t npad, const void* arena, int32_t words,
+                          int32_t res_off, const void* desc, int32_t placement,
+                          void* match,
+                          void* bits, void* counts, int32_t block,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pfac::Launch l;
+  err = pfac::sieve_launch(device, data, n, npad, arena, words, res_off, desc,
+                           placement, match, bits, counts, block, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -67,6 +67,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "launch.cuh"
 #include "probe.cuh"
 #include "walk_common.cuh"
 
@@ -235,38 +236,53 @@ const void* kernel_of(bool all) {
 // cap), each < n; out: int32[>= n]; arena: int32[words], 16-byte aligned,
 // its first `resident` words (any prefix, 0 included) staged in shared
 // memory; desc: 2 + 3 * nsteps rows. Else cudaErrorInvalidValue; a prefix
-// that does not fit shared memory fails the launch. Launches once on
-// `stream`, whatever the count; returns the launch's cudaError_t.
-extern "C" int pfac_walk(int device, const void* data, int32_t n,
-                         const void* pos, const void* count, int32_t cap,
-                         const void* arena, int32_t words, int32_t resident,
-                         const void* desc, int32_t nsteps, void* out,
-                         void* stream) {
+// that does not fit shared memory fails the launch. One launch, whatever
+// the count.
+cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
+                              const void* pos, const void* count, int32_t cap,
+                              const void* arena, int32_t words,
+                              int32_t resident, const void* desc,
+                              int32_t nsteps, void* out, Launch* l) {
+  *l = Launch{};
   if (n < 0 || cap < 0 || nsteps < 0 || resident < 0 || resident > words ||
       reinterpret_cast<uintptr_t>(arena) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    return cudaErrorInvalidValue;
   const bool all = resident == words;
   const int64_t smem = smem_bytes(nsteps, resident);
   int64_t grid;
-  err = pfac::persistent_grid(kernel_of(all), kThreads, device, smem, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = pfac::persistent_grid(kernel_of(all), kThreads, device,
+                                          smem, &grid);
+  if (err != cudaSuccess) return err;
   const auto* d = static_cast<const uint8_t*>(data);
   const auto* ps = static_cast<const int32_t*>(pos);
   const auto* c = static_cast<const int32_t*>(count);
   const auto* a = static_cast<const int32_t*>(arena);
   const auto* ds = static_cast<const int32_t*>(desc);
   auto* o = static_cast<int32_t*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid);
+  const auto g = static_cast<unsigned>(grid);
   if (all)
-    walk_kernel<true><<<g, kThreads, smem, st>>>(d, n, ps, c, cap, a, resident,
-                                                 ds, nsteps, o);
+    l->set(walk_kernel<true>, g, kThreads, smem, d, n, ps, c, cap, a,
+           resident, ds, nsteps, o);
   else
-    walk_kernel<false><<<g, kThreads, smem, st>>>(d, n, ps, c, cap, a,
-                                                  resident, ds, nsteps, o);
-  return static_cast<int>(cudaGetLastError());
+    l->set(walk_kernel<false>, g, kThreads, smem, d, n, ps, c, cap, a,
+           resident, ds, nsteps, o);
+  return cudaSuccess;
+}
+
+// As walk_launch; launches on `stream` and returns the launch's
+// cudaError_t.
+extern "C" int pfac_walk(int device, const void* data, int32_t n,
+                         const void* pos, const void* count, int32_t cap,
+                         const void* arena, int32_t words, int32_t resident,
+                         const void* desc, int32_t nsteps, void* out,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pfac::Launch l;
+  err = pfac::walk_launch(device, data, n, pos, count, cap, arena, words,
+                          resident, desc, nsteps, out, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }
 
 // The persistent grid pfac_walk launches for these tables into *grid

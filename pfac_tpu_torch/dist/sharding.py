@@ -19,12 +19,18 @@ guard bytes and keeps only the first B results of each chunk
   shard's tail is zeroed once, when it is placed), so a shard runs on its
   own bytes with nothing concatenated, and returns a view of its first
   ``shard_len`` positions;
-* across processes the heads travel in one ``all_gather`` (a few hundred
-  bytes), and the match count is summed with ``all_reduce``.
+* the match count is counted on each device by ``count_kernel``
+  (``backends/count.py``; in the sieve engine's program on CUDA), summed
+  on the first local device and, across processes, by ``all_reduce``
+  outside the program; the heads travel in one ``all_gather`` (a few
+  hundred bytes).
 
 Engines: ``"sieve"``, a ``SieveMatcher`` a device, whose device pipeline
 (``backends/pipeline.run``: K1, then K3 + compaction + K2, or compaction
-+ the CSR walk) runs once a shard; ``"xla"``, an ``XlaMatcher`` a device,
++ the CSR walk) runs once a shard: on CUDA devices one program launch a
+device (``backends/program.py``: every shard of the device a branch of one
+CUDA graph, the count kernel after them), else ``pipeline.run`` a shard;
+``"xla"``, an ``XlaMatcher`` a device,
 the lockstep walker with the sentinel at and past global position n;
 ``"auto"``, the sieve engine on CUDA devices
 and the walker on the CPU, as the reference picks the sieve on a TPU mesh
@@ -32,10 +38,10 @@ and the walker elsewhere (and the walker where the sieve's host tables
 cannot be built: ``backends/select.try_build`` chooses). On the CPU the
 sieve engine runs its kernels' plain versions.
 
-One process enqueues every local shard from one host thread, so its
-host time a call grows with the shards: a mesh of one process over
-several cards can be slower than one card (PERF.md), and one process a
-card (``multihost``) is the layout that scales.
+One process enqueues every local device's program from one host thread,
+so over several cards its host time a call grows with the cards: a mesh
+of one process over several cards can be slower than one card (PERF.md),
+and one process a card (``multihost``) is the layout that scales.
 
 Not ported, because nothing needs them here: the reference's
 ``tail_split`` layout (it spares a concatenation that the in-place halo
@@ -55,7 +61,8 @@ import torch
 
 from ..core.automaton import Automaton
 from ..status import PfacError, PfacStatus
-from ..backends import select
+from ..backends import count as count_mod
+from ..backends import program, select
 from ..backends.golden import _as_u8
 from ..backends.reduce import reduce_from_dense
 from ..backends.sieve_matcher import (_POS_LIMIT, TILE_ROWS, SieveMatcher,
@@ -282,10 +289,14 @@ class ShardedMatcher:
                 with _on(s.device):
                     s[shard_len:].copy_(head)
 
+    def _n_valid(self, g: int, shard_len: int, n: int) -> int:
+        """Bytes of global shard g's buffer that lie before n."""
+        return min(max(n - g * shard_len, 0), shard_len + self.halo)
+
     def _shard_result(self, buf: torch.Tensor, g: int, shard_len: int,
                       n: int) -> torch.Tensor:
         """Shard g's int32 result over its own positions (a view)."""
-        n_valid = min(max(n - g * shard_len, 0), shard_len + self.halo)
+        n_valid = self._n_valid(g, shard_len, n)
         dev = buf.device
         if n_valid == 0:                  # past the end: nothing to launch
             return torch.zeros(shard_len, dtype=torch.int32, device=dev)
@@ -301,6 +312,27 @@ class ShardedMatcher:
                 res = eng._walk(inp, shard_len // self.tile)
         return res[:shard_len]
 
+    def _programs(self, shards: list[torch.Tensor], shard_len: int, n: int,
+                  want_count: bool):
+        """The sieve engine on CUDA: one program launch a distinct device,
+        its shards in order -> (each local shard's result, each device's
+        count or None)."""
+        npad = npad_for(shard_len + self.halo, self.tile_rows)
+        on: dict[torch.device, list[int]] = {}
+        for i, s in enumerate(shards):
+            on.setdefault(s.device, []).append(i)
+        results, parts = [None] * len(shards), []
+        for dev, idx in on.items():
+            with _on(dev):
+                res, cnt = program.match_shards(
+                    self._engines[dev], [shards[i] for i in idx],
+                    [self._n_valid(self.mesh.global_index(i), shard_len, n)
+                     for i in idx], npad, shard_len, want_count)
+            for i, r in zip(idx, res):
+                results[i] = r
+            parts.append(cnt)
+        return results, parts
+
     def _run(self, shards: list[torch.Tensor], n: int,
              want_count: bool = False):
         """-> (each local shard's int32 owned result, the global match count
@@ -312,21 +344,26 @@ class ShardedMatcher:
         shard_len = shards[0].shape[0] - self.halo
         self._check_len(shard_len)
         self._exchange_halos(shards, shard_len)
-        results = [self._shard_result(s, self.mesh.global_index(i),
-                                      shard_len, n)
-                   for i, s in enumerate(shards)]
-        return results, (self._count(results) if want_count else None)
+        if self.engine == "sieve" and shards[0].device.type == "cuda":
+            results, parts = self._programs(shards, shard_len, n, want_count)
+        else:
+            results = [self._shard_result(s, self.mesh.global_index(i),
+                                          shard_len, n)
+                       for i, s in enumerate(shards)]
+            parts = ([count_mod.count_nonzero(r) for r in results]
+                     if want_count else None)
+        return results, (self._count(parts) if want_count else None)
 
-    def _count(self, results: list[torch.Tensor]) -> torch.Tensor:
-        """Matching positions over every shard: a sum a shard, summed on the
-        first local device, then over the process group."""
+    def _count(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """Matching positions over every shard from each device's or shard's
+        count (0-d int64): summed on the first local device, then over the
+        process group."""
         dev0 = self.mesh.devices[0]
-        parts = []
-        for r in results:
-            with _on(r.device):       # int32: a shard holds < 2^31 positions
-                parts.append((r != 0).sum(dtype=torch.int32)
-                             .to(dev0, non_blocking=True))
-        count = torch.stack(parts).sum(dtype=torch.int64)
+        if len(parts) == 1 and parts[0].device == dev0:
+            count = parts[0]
+        else:
+            count = torch.stack([p.to(dev0, non_blocking=True)
+                                 for p in parts]).sum()
         if self.mesh.group is not None:
             import torch.distributed as dist
 

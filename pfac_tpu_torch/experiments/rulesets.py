@@ -14,6 +14,9 @@ a seed with numpy.
   virus-dense worst case of ``tools_bench_matrix.py``.
 * :func:`mixed_density`: ``tests/test_pallas_sieve.py``'s mixed-density
   recipe at full block size.
+* :func:`f1_regime`: ROADMAP.md's F1 regime: tens of thousands of short
+  random patterns, whose walk tables' entry tables alone outgrow the
+  shared memory K2 and K3 have for tables.
 """
 from __future__ import annotations
 
@@ -79,3 +82,21 @@ def mixed_density(rng, pats, n: int, block: int) -> np.ndarray:
         p = pats[int(rng.integers(0, len(pats)))]
         d[i:i + len(p)] = np.frombuffer(p, np.uint8)
     return d
+
+
+def f1_regime(seed: int, k: int, n: int) -> tuple[list[bytes], np.ndarray]:
+    """`k` distinct patterns of 3-8 random bytes (lengths uniform) and `n`
+    random bytes with one of them planted every 97 bytes -> (patterns,
+    corpus)."""
+    rng = np.random.default_rng(seed)
+    pats: dict[bytes, None] = {}
+    while len(pats) < k:
+        for ln in rng.integers(3, 9, size=k - len(pats)):
+            pats[rng.integers(0, 256, size=int(ln), dtype=np.uint8).tobytes()] = None
+    plist = list(pats)
+    d = rng.integers(0, 256, size=n, dtype=np.uint8)
+    for i, j in zip(range(0, n - 8, 97),
+                    rng.integers(0, len(plist), size=(n - 8 + 96) // 97)):
+        p = plist[int(j)]
+        d[i:i + len(p)] = np.frombuffer(p, np.uint8)
+    return plist, d

@@ -9,7 +9,8 @@ mesh: bytes, median ms, GB/s, GB/s per distinct card, the efficiency
 against the single-device engine, the host's time to enqueue one call
 (``host_ms``), the card's name and its power limit. The timed call
 is the match without the global count, as in the reference; the count
-(one more pass over the result) is timed apart (``count_ms``). Times are
+(one more pass over the result: ``count_kernel`` a shard, summed) is
+timed apart (``count_ms``). Times are
 CUDA-event medians on one card; over several cards, host-clock medians of
 calls that end with every card synchronised.
 
@@ -79,6 +80,7 @@ def scaling_lines(automaton, data: np.ndarray, sizes, corpus: str,
     """The single-device line, then one line a mesh size in `sizes`.
     `engine`: a ``SieveMatcher`` on cuda:0 built beforehand, whose tables
     every mesh shares; `data_dev`: `data` already on cuda:0."""
+    from ..backends import count as count_mod
     from ..backends import golden
     from ..backends.sieve_matcher import SieveMatcher
     from ..dist.sharding import ShardedMatcher, device_mesh
@@ -113,7 +115,8 @@ def scaling_lines(automaton, data: np.ndarray, sizes, corpus: str,
         t = _time_ms(lambda: sm._run(shards, n), mesh.devices)
         host_ms = _host_ms(lambda: sm._run(shards, n), mesh.devices)
         results, _ = sm._run(shards, n)
-        t_count = _time_ms(lambda: sm._count(results), mesh.devices)
+        t_count = _time_ms(lambda: sm._count(
+            [count_mod.count_nonzero(r) for r in results]), mesh.devices)
         chips = len(set(mesh.devices))
         gbps = n / t / 1e6
         lines.append({"harness": "scaling", "corpus": corpus, "mesh": nd,

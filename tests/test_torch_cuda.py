@@ -13,8 +13,9 @@ import pytest
 import torch
 
 import pfac_tpu_torch as pt
-from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, golden,
-                                     pipeline, sieve, sieve_matcher, walk)
+from pfac_tpu_torch.backends import (block_walk, compact, count, csr_walk,
+                                     golden, pipeline, program, reduce, sieve,
+                                     sieve_matcher, walk)
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
 from pfac_tpu_torch.tools import bench, bench_matrix, graft_entry
 from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
@@ -767,7 +768,7 @@ def test_sharded_match_device_does_not_synchronize(dev):
 
 @pytest.mark.parametrize("n", [1, 5, 70_000])
 def test_sharded_shards_past_the_end(dev, n):
-    # an input shorter than the mesh: the shards past it launch nothing
+    # an input shorter than the mesh: the shards past it run on no bytes
     pats, rng = _ruleset(45)
     m = pt.Matcher(pats, device=dev)
     host = _corpus(rng, pats, max(n, 200))[:n]
@@ -804,3 +805,168 @@ def test_graft_entry_on_card(dev):
     assert torch.equal(fn(*args).cpu(), cpu_fn(*cpu_args))
     assert graft_entry.dryrun_multichip(4).startswith(
         "dryrun_multichip(4): OK")
+
+
+# --------------------------------------------------------------- programs
+def _wrappers(eng, data, n, npad):
+    """The per-kernel wrappers' chain (pipeline.run) on the card."""
+    return pipeline.run(data, n, npad, eng._sieve, eng._walk, eng._csr,
+                        block=eng.tile_rows * 128)
+
+
+def test_program_equals_pipeline_over_lengths(dev):
+    # one matcher, a sequence of lengths and npads (back to ones seen
+    # before): each call one program launch, equal to the wrappers' chain
+    # and to the plain pipeline; one program a (device, npad)
+    pats, rng = _ruleset(51)
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    host = _corpus(rng, pats, 3 << 20)
+    lengths = [5, 65536, 65537, 300_001, 3 << 20, 70_000, 5, 1]
+    for n in lengths:
+        data = torch.from_numpy(host[:n].copy()).to(dev)
+        before = program.LAUNCHES
+        got = m.match_device(data)
+        assert program.LAUNCHES == before + 1
+        npad = npad_for(n)
+        assert torch.equal(got, _wrappers(eng, data, n, npad)), n
+        assert torch.equal(got, pipeline.run(data, n, npad, eng._sieve,
+                                             eng._walk, plain=True)), n
+    npads = {npad_for(n) for n in lengths}
+    assert set(eng._programs) == {(dev.index or 0, p, False) for p in npads}
+
+
+@pytest.mark.parametrize("offset", [1, 3, 15])
+def test_program_unaligned_view(dev, offset):
+    pats, rng = _ruleset(53)
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    base = torch.from_numpy(_corpus(rng, pats, 1 << 20)).to(dev)
+    view = base[offset:]
+    assert view.data_ptr() % 16
+    n = view.shape[0]
+    assert torch.equal(m.match_device(view),
+                       _wrappers(eng, view.clone(), n, npad_for(n)))
+
+
+def test_program_two_streams_two_matchers(dev):
+    # two matchers of one npad, each on its own stream, calls interleaved:
+    # no buffer is shared, so every result equals its matcher's own chain
+    sets = [_ruleset(55), _csr_ruleset()]
+    ms = [pt.Matcher(p, device=dev) for p, _ in sets]
+    datas = [torch.from_numpy(_corpus(rng, p, 2 << 20)).to(dev)
+             for p, rng in sets]
+    want = [_wrappers(m._engine(), d, d.shape[0], npad_for(d.shape[0]))
+            for m, d in zip(ms, datas)]
+    streams = [torch.cuda.Stream(dev) for _ in ms]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got = [[], []]
+    for _ in range(4):
+        for k, (m, d, s) in enumerate(zip(ms, datas, streams)):
+            with torch.cuda.stream(s):
+                got[k].append(m.match_device(d))
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(torch.equal(g, want[k]) for g in got[k])
+
+
+@pytest.mark.parametrize("placement", sieve.PLACEMENTS)
+def test_program_csr_tier_every_placement(dev, placement, monkeypatch):
+    # the CSR tier with K1 in each placement (forced), the cluster's
+    # dimensions kept in the graph node across updates
+    pats, rng = _csr_ruleset()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    assert eng._csr is not None
+    monkeypatch.setattr(sieve, "placement_for", lambda tabs: placement)
+    for n in (300_001, 1 << 20, 300_001):
+        host = _corpus(rng, pats, n)
+        data = torch.from_numpy(host).to(dev)
+        _zero(sieve.LAUNCHES)
+        got = m.match_device(data)
+        assert sieve.LAUNCHES[f"sieve_{placement}_kernel"] == 1
+        assert torch.equal(got, pipeline.run(data, n, npad_for(n),
+                                             eng._sieve, None, eng._csr,
+                                             plain=True))
+
+
+def test_program_sieve_only_tier(dev):
+    # patterns of at most 3 bytes: K1 alone, then the reduce
+    m = pt.Matcher([b"AB", b"ABG", b"B", b"xyz"], device=dev)
+    eng = m._engine()
+    host = np.frombuffer(b"ABGxyzAB" * 40_000, np.uint8).copy()
+    data = torch.from_numpy(host).to(dev)
+    n = host.shape[0]
+    got = m.match_device(data)
+    geo = eng._programs[(dev.index or 0, npad_for(n), False)].geo
+    assert torch.equal(got, _wrappers(eng, data, n, npad_for(n)))
+    assert got[:n].cpu().numpy().tolist() == golden.match_edges_batch(
+        m.automaton, host).tolist()
+    ids, pos, cnt = m.match_reduce_device(data)
+    w_ids, w_pos, w_cnt = reduce.reduce_plain(got)
+    assert geo.tier in program.TIERS and int(cnt) == int(w_cnt)
+    assert torch.equal(ids, w_ids) and torch.equal(pos, w_pos)
+
+
+@pytest.mark.parametrize("tier", ["walk", "csr"])
+def test_program_reduce_and_launches(dev, tier):
+    # match_reduce_device: one program launch, the reduce's kernels behind
+    # the pipeline's once each, equal to reduce_plain of the match; a first
+    # call at a new length under set_sync_debug_mode("error")
+    pats, rng = _ruleset(57) if tier == "walk" else _csr_ruleset()
+    m = pt.Matcher(pats, device=dev)
+    m._engine()                 # the tables on the card before the check
+    data = torch.from_numpy(_corpus(rng, pats, 1_500_000)).to(dev)
+    torch.cuda.synchronize()
+    _zero(sieve.LAUNCHES, compact.LAUNCHES, reduce.LAUNCHES)
+    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+    before = program.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ids, pos, cnt = m.match_reduce_device(data)
+        res = m.match_device(data)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert program.LAUNCHES == before + 2
+    assert sum(sieve.LAUNCHES.values()) == 2
+    assert compact.LAUNCHES == {"compact_scan_kernel": 2, "compact_kernel": 2}
+    assert reduce.LAUNCHES == {"reduce_kernel": 1, "reduce_tail_kernel": 1}
+    assert walk.LAUNCHES == block_walk.LAUNCHES == 2 * (tier == "walk")
+    assert csr_walk.LAUNCHES == 2 * (tier == "csr")
+    w_ids, w_pos, w_cnt = reduce.reduce_plain(res)
+    assert cnt.dim() == 0 and cnt.dtype == torch.int32
+    assert int(cnt) == int(w_cnt) > 0
+    assert torch.equal(ids, w_ids) and torch.equal(pos, w_pos)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1000, 65536, 3_000_001])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_count_kernel_matches_plain(dev, n, offset):
+    rng = np.random.default_rng(n + offset)
+    r = torch.from_numpy(rng.integers(0, 3, size=n + offset,
+                                      dtype=np.int32)).to(dev)[offset:]
+    before = count.LAUNCHES
+    got = count.count_nonzero(r)
+    assert count.LAUNCHES == before + 1
+    assert got.dim() == 0 and got.dtype == torch.int64
+    assert int(got) == int(count.count_nonzero_plain(r)) == int(
+        torch.count_nonzero(r))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_sharded_program_count(dev, k):
+    # one program launch a call on one card, whatever the shards; the
+    # count kernel once, equal to the plain count of the shards' results
+    pats, rng = _ruleset(59)
+    m = pt.Matcher(pats, device=dev)
+    host = _corpus(rng, pats, 3 << 20)
+    n = host.shape[0]
+    data = torch.from_numpy(host).to(dev)
+    sm = _sharded(m, dev, k)
+    shards = sm._put(data, sm._shard_len(n))
+    before, c_before = program.LAUNCHES, count.LAUNCHES
+    res, cnt = sm.match_device(shards, n)
+    assert program.LAUNCHES == before + 1 and count.LAUNCHES == c_before + 1
+    assert int(cnt) == sum(int(count.count_nonzero_plain(r)) for r in res)
+    assert torch.equal(torch.cat(res)[:n], m.match_device(data)[:n])
