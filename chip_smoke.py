@@ -73,14 +73,24 @@ Phases, each on lines of its own:
    card's own time of the kernel and of ``torch.gather``'s
    (torch.profiler), and the same for G1 on E1 C/D, E2 and the E6 planes
    (beside ``torch.take``'s) and for G4 on E4;
-10. the lockstep walker (``backends/xla.py``): every tier that takes it
-   (``Backend.XLA`` dense and hash, ``PlacementMode.HBM``, and the fallback
-   from a sieve-table budget patched to 0 in this process; ``Backend.PALLAS``
-   over that budget raises) over the Snort set on 16 MB of the random and
-   DEFCON-like corpora, and the 100K ruleset in dense mode on 4 MB of its
-   corpus (its hash tables are refused, as in the reference), each equal to
-   the sieve engine on the same bytes and to the golden model, with e2e
-   times and table bytes; the device reduce (``match_reduce_device``) on
+10. the lockstep walker (``backends/xla.py``, its kernels
+   ``lockstep_dense_kernel`` and ``lockstep_hash_kernel`` in
+   ``csrc/lockstep.cu``): every tier that takes it (``Backend.XLA`` dense
+   and hash, ``PlacementMode.HBM``, and the fallback from a sieve-table
+   budget patched to 0 in this process; ``Backend.PALLAS`` over that budget
+   raises) over the Snort set on the whole 128 MB random and DEFCON-like
+   corpora, and the 100K ruleset in dense mode on its whole corpus (its
+   hash tables are refused, as in the reference): each kernel bit-equal to
+   its plain version on each corpus; a line a tier and corpus with the
+   launch counts reset just before one ``match_device`` and read just
+   after (its mode's kernel once; once more in ``match_reduce_device``),
+   both under ``torch.cuda.set_sync_debug_mode("error")`` with no
+   ``aten::nonzero``, the result equal in full to the sieve engine's, the
+   e2e time and GB/s, the kernel's profiler time, its bound (5 B a
+   position), the busy share and the plain version's time on 16 MB;
+   golden on 16 MB of each corpus (4 MB of the 100K corpus); each kernel
+   with max_len 2 (the pair lookups alone) beside its whole walk; the
+   device reduce (``match_reduce_device``) on
    every corpus of phase 6, launch counts reset just before it, under
    ``torch.cuda.set_sync_debug_mode("error")``: reduce_kernel and
    reduce_tail_kernel launched once a corpus, each result equal to the
@@ -97,8 +107,10 @@ Phases, each on lines of its own:
    ``torch.cuda.set_sync_debug_mode("error")``; the longest pattern
    planted across every shard boundary against the golden model; a
    process group of one rank (NCCL) with 2 local shards; the walker engine
-   sharded; ``tools/bench_scaling``'s lines for 1, 2 and 4 shards on the
-   random and DEFCON-like corpora with the card's busy time a call; and
+   on 2 and 4 shards (one lockstep kernel launch a shard, no host
+   synchronisation, equal in full to one device);
+   ``tools/bench_scaling``'s lines for 1, 2 and 4 shards on the random and
+   DEFCON-like corpora with the card's busy time a call; and
    ``device_fuzz --sharded``;
 12. the system's own entry points: ``tools/bench`` (its gates, among them
    the fingerprint of the whole 128 MB result against
@@ -114,7 +126,8 @@ Phases, each on lines of its own:
    of its grid, and the e2e with the card's busy share; the survivor counts of the DEFCON-like and
    virus-dense corpora against the reference's records; the reduce on
    ``reduce_device_3pct``'s vector timed as in phase 10; then
-   ``tools/graft_entry``'s walker step (equal to the CPU's) and
+   ``tools/graft_entry``'s walker step (one launch of the dense lockstep
+   kernel, equal to the CPU's plain walk) and
    ``dryrun_multichip(4)`` on the card;
 13. one program launch a call (``backends/program.py``: the chain of
    kernels as a CUDA graph, built once for each (device, npad); every
@@ -143,7 +156,8 @@ Phases, each on lines of its own:
 
 Then one JSON line of per-kernel results (every kernel of the main path,
 reduce_kernel and reduce_tail_kernel with their launches on the reduce
-path, count_kernel with its launches on phase 13's sharded calls, and
+path, count_kernel with its launches on phase 13's sharded calls, the two
+lockstep kernels with their launches on phase 10's counted calls, and
 G1-G4, each with its bound and library time), and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without a GPU.
@@ -274,17 +288,27 @@ def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
           f"({dt:.1f} s, {off / MB / dt:.2f} MB/s on the host)")
 
 
-def lockstep_phase(dev, name_limit, a, m, snort, big) -> None:
-    """Phase 10a: the lockstep walker (``backends/xla.py``) on the card.
-    Every tier that takes it (Backend.XLA dense and hash,
-    PlacementMode.HBM, and the fallback from a sieve-table budget patched
-    to 0) over the Snort set on SLICE bytes of each of `snort`'s corpora,
-    and the 100K ruleset on BIG_SLICE bytes of its corpus (`big`: automaton,
-    sieve engine's Matcher, device corpus, host corpus); each result equal
-    to the sieve engine's on the same bytes and to the golden model, with
-    its e2e time and table bytes."""
+def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
+    """Phase 10a: the lockstep walker (``backends/xla.py``, its kernels
+    ``csrc/lockstep.cu``) on the card at full width. Every tier that takes
+    it (Backend.XLA dense and hash, PlacementMode.HBM, and the fallback
+    from a sieve-table budget patched to 0) over the Snort set on each of
+    `snort`'s whole corpora, and the 100K ruleset in dense mode on its
+    whole corpus (`big`: automaton, sieve engine's Matcher, device corpus,
+    host corpus). For each tier and corpus: launch counts reset just before
+    one match_device and read just after (its mode's kernel once), then
+    the same for match_reduce_device, both under
+    torch.cuda.set_sync_debug_mode("error") and torch.profiler (no
+    aten::nonzero); the result equal in full to the sieve engine's; e2e,
+    the kernel's profiler time, its bound, the busy share and the plain
+    version's time on SLICE bytes. Each kernel against its plain version on
+    each whole corpus, bit-equal; golden on SLICE bytes (BIG_SLICE of the
+    100K corpus); each kernel with max_len 2 beside its whole walk. -> the
+    kernels' rows' numbers (on the DEFCON-like corpus)."""
+    from torch.profiler import ProfilerActivity, profile
+
     import pfac_tpu_torch as pt
-    from pfac_tpu_torch.backends import sieve_matcher
+    from pfac_tpu_torch.backends import lockstep, sieve_matcher
     from pfac_tpu_torch.backends.xla import XlaMatcher
     from pfac_tpu_torch.experiments.gathers import cuda_ms
 
@@ -311,19 +335,123 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> None:
         assert isinstance(e, XlaMatcher), (tier, type(e))
         print(f"walker {tier}: XlaMatcher, perf_mode {e.perf_mode}, tile "
               f"{e.tile}, {e.table_bytes} bytes of tables on the card")
+    rows = {k: {"launches": 0, "err": 0} for k in lockstep.KERNELS.values()}
+
+    def against_plain(e, cname, d) -> dict:
+        """The kernel of e's mode against its plain version on the whole
+        corpus (launches not counted); the plain version's times on the
+        whole corpus and on SLICE bytes."""
+        kernel = lockstep.KERNELS[e.perf_mode]
+        n = d.shape[0]
+        npad = e.match_device(d).shape[0]
+        kw = dict(perf_mode=e.perf_mode,
+                  num_final=e.automaton.num_final_states,
+                  max_len=e.automaton.max_pattern_len)
+        got = lockstep.lockstep_walk(
+            d, n, torch.empty(npad, dtype=torch.int32, device=dev),
+            e._tables, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = lockstep.lockstep_walk_plain(
+            d, n, torch.empty(npad, dtype=torch.int32, device=dev),
+            e._tables, **kw)
+        end.record()
+        end.synchronize()
+        err = max_abs_err(got, want)
+        assert err == 0, f"{kernel} != plain on {cname}"
+        rows[kernel]["err"] = max(rows[kernel]["err"], err)
+        out16 = torch.empty(SLICE, dtype=torch.int32, device=dev)
+        plain16 = cuda_ms(lambda: lockstep.lockstep_walk_plain(
+            d, min(n, SLICE), out16, e._tables, **kw), reps=3, warmup=1)
+        print(f"{kernel} vs plain {cname} {n // MB} MB: bit-equal "
+              f"({int((got > 0).sum())} matching positions); plain "
+              f"{start.elapsed_time(end):.3f} ms on the whole corpus, "
+              f"{plain16:.3f} ms on {SLICE // MB} MB  [{name_limit}]")
+        del got, want
+        return {"plain_full": start.elapsed_time(end), "plain16": plain16}
+
+    def walker_line(tier, mt, cname, d, want, plain) -> dict:
+        """One tier on one whole corpus, counted and checked, timed."""
+        e = mt._engine()
+        kernel = lockstep.KERNELS[e.perf_mode]
+        n = d.shape[0]
+        mt.match_device(d)                        # warm
+        torch.cuda.synchronize()
+        lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                got = mt.match_device(d)
+                per = dict(lockstep.LAUNCHES)
+                lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+                ids, pos, cnt = mt.match_reduce_device(d)
+                per_reduce = dict(lockstep.LAUNCHES)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        nonzero = sum(ev.count for ev in prof.key_averages()
+                      if ev.key == "aten::nonzero")
+        once = {k: int(k == kernel) for k in lockstep.LAUNCHES}
+        assert per == once and per_reduce == once, (tier, cname, per,
+                                                    per_reduce)
+        assert nonzero == 0, (tier, cname, nonzero)
+        rows[kernel]["launches"] += per[kernel]
+        assert torch.equal(got[:n], want[:n]) and not got[n:].any(), \
+            f"walker {tier} != sieve engine on {cname}"
+        c = int(cnt)
+        assert c == int((want[:n] > 0).sum()), (tier, cname, c)
+        del ids, pos, cnt
+        ms = cuda_ms(lambda: mt.match_device(d))
+        kms = kernel_ms(device_ms(lambda: mt.match_device(d), need=(kernel,)),
+                        kernel, ms)
+        bound = bound_ms(lockstep.bound_bytes(got.shape[0], n))
+        print(f"walker {tier} {cname} {n // MB} MB: {kernel} launched "
+              f"{per[kernel]}x by match_device and {per_reduce[kernel]}x by "
+              f"match_reduce_device (count {c}), aten::nonzero {nonzero}, no "
+              f"host synchronisation; equal in full to the sieve engine; "
+              f"e2e {ms:.4f} ms = {n / ms / 1e6:.2f} GB/s; {kernel} "
+              f"{kms:.4f} ms (profiler), bound {bound:.4f} ms "
+              f"({100 * bound / kms:.1f}%), busy {100 * kms / ms:.1f}%; "
+              f"plain {plain['plain16']:.3f} ms on {SLICE // MB} MB  "
+              f"[{name_limit}]", flush=True)
+        return {"ms": kms, "bound_ms": bound, "result": got}
+
+    def pair_lookups_alone(e, cname, d, whole_ms) -> None:
+        """Where a kernel's time goes: the same launch with max_len 2 (the
+        pair tables' lookups and the write, no step), by the profiler."""
+        kernel = lockstep.KERNELS[e.perf_mode]
+        out = torch.empty(e.match_device(d).shape[0], dtype=torch.int32,
+                          device=dev)
+        run = lambda: lockstep.lockstep_walk(
+            d, d.shape[0], out, e._tables, perf_mode=e.perf_mode,
+            num_final=e.automaton.num_final_states, max_len=2)
+        t = kernel_ms(device_ms(run, need=(kernel,)), kernel, cuda_ms(run))
+        print(f"breakdown walker {cname}: {kernel} with max_len 2 (the pair "
+              f"lookups and the write alone, no step) {t:.4f} ms of the "
+              f"whole walk's {whole_ms:.4f} ms (profiler)  [{name_limit}]")
+
+    timed = {}
     for cname, d, host in snort:
-        sl, hs = d[:SLICE], host[:SLICE]
-        want = m.match_device(sl)
+        want = m.match_device(d)
+        plain = {mode: against_plain(walkers[f"Backend.XLA {mode}"]._engine(),
+                                     cname, d)
+                 for mode in ("dense", "hash")}
         for tier, mt in walkers.items():
-            got = mt.match_device(sl)
-            assert got.shape[0] == SLICE and torch.equal(got, want[:SLICE]), \
-                f"walker {tier} != sieve engine on {cname}"
-            ms = cuda_ms(lambda: mt.match_device(sl), reps=5, warmup=1)
-            print(f"time walker {tier} {cname} {SLICE // MB} MB: {ms:.4f} "
-                  f"ms = {SLICE / ms / 1e6:.3f} GB/s, equal to the sieve "
-                  f"engine ({int((got > 0).sum())} matching positions)  "
-                  f"[{name_limit}]")
-        golden_check(a, hs, want, f"walker {cname}", SLICE, 0.0)
+            r = walker_line(tier, mt, cname, d, want,
+                            plain[mt._engine().perf_mode])
+            got = r.pop("result")
+            timed[(tier, cname)] = r
+        golden_check(a, host, got, f"walker {cname}", SLICE, 0.0)
+        for mode in ("dense", "hash"):
+            tier = f"Backend.XLA {mode}"
+            pair_lookups_alone(walkers[tier]._engine(), cname, d,
+                               timed[(tier, cname)]["ms"])
+        if cname == "defcon_like":
+            for mode in ("dense", "hash"):
+                t = timed[(f"Backend.XLA {mode}", cname)]
+                rows[lockstep.KERNELS[mode]].update(
+                    ms=t["ms"], bound_ms=t["bound_ms"],
+                    plain_ms=plain[mode]["plain_full"])
+        del want, got
     ab, mb, big_d, big_host = big
     try:
         pt.Matcher(automaton=ab, device=dev, backend="xla",
@@ -336,18 +464,16 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> None:
     e = mx._engine()
     print(f"walker 100K dense: {e.table_bytes} bytes of tables on the card; "
           f"set-up {time.perf_counter() - t0:.1f} s")
-    sl, hs = big_d[:BIG_SLICE], big_host[:BIG_SLICE]
-    want = mb.match_device(sl)
-    got = mx.match_device(sl)
-    assert torch.equal(got[:BIG_SLICE], want[:BIG_SLICE]), \
-        "walker 100K != sieve engine"
-    ms = cuda_ms(lambda: mx.match_device(sl), reps=5, warmup=1)
-    print(f"time walker Backend.XLA dense big_ruleset {BIG_SLICE // MB} MB: "
-          f"{ms:.4f} ms = {BIG_SLICE / ms / 1e6:.3f} GB/s, equal to the sieve "
-          f"engine  [{name_limit}]")
-    golden_check(ab, hs, got, "walker big_ruleset", BIG_SLICE, 0.0)
-    del mx, e, got, want, walkers
+    want = mb.match_device(big_d)
+    plain = against_plain(e, "big_ruleset", big_d)
+    r = walker_line("Backend.XLA dense", mx, "big_ruleset", big_d, want,
+                    plain)
+    golden_check(ab, big_host, r.pop("result"), "walker big_ruleset",
+                 BIG_SLICE, 0.0)
+    pair_lookups_alone(e, "big_ruleset", big_d, r["ms"])
+    del mx, e, want, walkers
     torch.cuda.empty_cache()
+    return rows
 
 
 def time_reduce(nm: str, res: torch.Tensor, c: int, name_limit: str):
@@ -530,7 +656,7 @@ def sharded_phase(dev, name_limit, corpora) -> None:
 
     import torch.distributed as dist
 
-    from pfac_tpu_torch.backends import golden
+    from pfac_tpu_torch.backends import golden, lockstep
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
     from pfac_tpu_torch.backends.xla import XlaMatcher
     from pfac_tpu_torch.dist import multihost
@@ -650,16 +776,34 @@ def sharded_phase(dev, name_limit, corpora) -> None:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    # the walker engine, sharded
+    # the walker engine, sharded: one lockstep kernel launch a shard
     _, mt, d, host, *_ = by_name["random"]
-    sm = ShardedMatcher(mt.automaton, mesh=make_data_mesh(devices=[dev] * 2),
-                        engine="xla")
-    want = XlaMatcher(mt.automaton, device=dev).match_device(d[:SLICE])
-    got = sm.match(host[:SLICE])
-    assert np.array_equal(got, want[:SLICE].cpu().numpy()), "sharded walker"
-    print(f"sharded walker: 2 shards over {SLICE // MB} MB of random equal "
-          f"to the single-device walker")
-    del sm, want
+    for k in (2, 4):
+        sm = ShardedMatcher(mt.automaton,
+                            mesh=make_data_mesh(devices=[dev] * k),
+                            engine="xla")
+        want = XlaMatcher(mt.automaton, device=dev).match_device(d[:SLICE])
+        shards = sm._put(d[:SLICE], sm._shard_len(SLICE))
+        torch.cuda.synchronize()
+        lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res, cnt = sm.match_device(shards, SLICE)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        per = dict(lockstep.LAUNCHES)
+        assert per == {"lockstep_dense_kernel": k,
+                       "lockstep_hash_kernel": 0}, per
+        assert torch.equal(torch.cat(res)[:SLICE], want[:SLICE])
+        assert int(cnt) == int((want > 0).sum())
+        got = sm.match(host[:SLICE])
+        assert np.array_equal(got, want[:SLICE].cpu().numpy()), \
+            "sharded walker"
+        print(f"sharded walker: {k} shards over {SLICE // MB} MB of random "
+              f"equal in full to the single-device walker (match_device and "
+              f"match), count {int(cnt)}; launches {json.dumps(per)} under "
+              f"set_sync_debug_mode('error')")
+        del sm, want, shards, res
 
     # bench_scaling's lines; then the card's busy time in a sharded call
     # (torch.profiler: every kernel of the call runs once a shard, so a
@@ -717,8 +861,8 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     the card; `walker_time` and `floor_text` are phase 8's."""
     from torch.profiler import ProfilerActivity, profile
 
-    from pfac_tpu_torch.backends import (block_walk, compact, pipeline,
-                                         sieve, walk)
+    from pfac_tpu_torch.backends import (block_walk, compact, lockstep,
+                                         pipeline, sieve, walk)
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
     from pfac_tpu_torch.experiments.gathers import cuda_ms
     from pfac_tpu_torch.tools import bench, bench_matrix, graft_entry
@@ -828,11 +972,14 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     torch.cuda.empty_cache()
 
     fn, args = graft_entry.entry(dev)
+    before = dict(lockstep.LAUNCHES)
     out = fn(*args)
+    per = {k: c - before[k] for k, c in lockstep.LAUNCHES.items()}
+    assert per == {"lockstep_dense_kernel": 1, "lockstep_hash_kernel": 0}, per
     cpu_fn, cpu_args = graft_entry.entry("cpu")
     assert torch.equal(out.cpu(), cpu_fn(*cpu_args)), "entry() != CPU"
-    print(f"entry(): ran on {dev}, out shape {tuple(out.shape)}, equal to "
-          f"the CPU's")
+    print(f"entry(): ran on {dev}, out shape {tuple(out.shape)}, launches "
+          f"{json.dumps(per)}, equal to the CPU's (the plain version)")
     graft_entry.dryrun_multichip(4, [dev] * 4)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
@@ -1867,9 +2014,10 @@ def main() -> int:
     # fuzz on the card
     t10 = time.perf_counter()
     torch.cuda.empty_cache()
-    lockstep_phase(dev, name_limit, a, m,
-                   [("random", rand_d, rand), ("defcon_like", def_d, defcon)],
-                   (ab, mb, big_d, big))
+    walk_rows = lockstep_phase(
+        dev, name_limit, a, m,
+        [("random", rand_d, rand), ("defcon_like", def_d, defcon)],
+        (ab, mb, big_d, big))
     red = reduce_phase(dev, name_limit, corpora)
     surfaces_phase(dev)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
@@ -1959,6 +2107,13 @@ def main() -> int:
                 "pfac_tpu/backends/xla.py:476 (_reduce_rowgather, XLA)",
                 r_["err"], r_["ms"], r_["plain_ms"], r_["bound_ms"],
                 r_["library_ms"])
+        r["launches"] = r_["launches"]
+        kernels.append(r)
+    for k, r_ in walk_rows.items():
+        r = row(k, "lockstep.cu",
+                "pfac_tpu/backends/xla.py:167 (walk_tiles, XLA; "
+                "_match_dense_padded :215, _match_hash_padded :235)",
+                r_["err"], r_["ms"], r_["plain_ms"], r_["bound_ms"])
         r["launches"] = r_["launches"]
         kernels.append(r)
     r = row("count_kernel", "count.cu",

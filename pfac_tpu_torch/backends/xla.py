@@ -4,23 +4,28 @@ The engine for every call the reference sends to its ``XlaMatcher``:
 ``Backend.XLA``, ``Platform.CPU_PARALLEL`` (the same engine on
 ``torch.device("cpu")``), ``PlacementMode.HBM``, and the fallback when the
 sieve engine's host tables cannot be built (``select.try_build``). It walks
-a failureless automaton from every start position at once, in torch on CPU
-or CUDA tensors; the reference runs no Pallas kernel here, so neither does
-the port. The reference's names are kept, so each function has its
-counterpart:
+a failureless automaton from every start position. The reference compiles
+the walk into one device program a call; on a CUDA device the port makes
+it one launch of a hand-written kernel (``lockstep.py``,
+``csrc/lockstep.cu``: one thread a position, breaking out of its own walk,
+reading the uint8 input and its length directly), with no host
+synchronisation and no padded copy. On the CPU it walks in torch
+(:func:`walk_tiles`, the kernel's plain version). The reference's names
+are kept, so each function has its counterpart:
 
 * **trap = state 0**: device row 0 is all zero and every trap edge points
   at 0, so a trapped lane stays at 0 and keeps its match;
-* **sentinel column 256**: the input is padded with the value 256, whose
-  column is all-trap, so walks die at the end of the input with no bounds
-  check (the input is int16: the sentinel does not fit a byte);
+* **sentinel column 256**: the torch walk pads the input with the value
+  256, whose column is all-trap, so walks die at the end of the input with
+  no bounds check (the input is int16: the sentinel does not fit a byte);
+  the kernel treats a byte at or past n the same way;
 * **fused first two steps**: one gather from the 257 x 257 pair tables
   gives the state and the best match after two bytes;
 * **early exit**: the reference's ``while_loop`` stops a tile when every
-  lane has trapped, a test on the device. Here a host test would cost a
-  synchronisation per tile and step, so :func:`walk_tiles` walks pieces of
-  up to :data:`PIECE` positions, keeps only the live lanes after the pair
-  step, and compacts them again every :data:`COMPACT_EVERY` steps. A
+  lane has trapped, a test on the device. The kernel's threads each stop
+  on their own. :func:`walk_tiles` walks pieces of up to :data:`PIECE`
+  positions, keeps only the live lanes after the pair step, and compacts
+  them again every :data:`COMPACT_EVERY` steps (a host test each time). A
   trapped lane keeps its match, so the result does not depend on when the
   loop stops.
 
@@ -48,6 +53,7 @@ from ..core.tables import HASH_KEY_K_MASKBITS, HASH_KEY_S_MASK
 from ..core.trie import CHAR_SET, TRAP_STATE
 from ..status import PfacError, PfacStatus
 from .golden import _as_u8
+from .lockstep import lockstep_walk
 from .reduce import reduce_from_dense
 
 SENTINEL = CHAR_SET    # 256: the padding value; column 256 is all-trap
@@ -239,39 +245,40 @@ def sentinel_pad(data_u8: torch.Tensor, padded: int) -> torch.Tensor:
 
 @dataclasses.dataclass
 class XlaMatcher:
-    """Holds the device tables and walks every start position."""
+    """Holds the device tables and walks every start position. On the card
+    unless `device` says otherwise: ``"cuda"`` is the current GPU, and with
+    no GPU visible it raises."""
 
     automaton: Automaton
     perf_mode: str = "dense"      # "dense" | "hash"
     tile: int = DEFAULT_TILE
-    device: torch.device | str | None = None
+    device: torch.device | str = "cuda"
 
     def __post_init__(self):
-        dev = torch.device("cpu" if self.device is None else self.device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        dev = torch.device(self.device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise PfacError(PfacStatus.INVALID_PARAMETER,
+                                "no GPU is visible: pass device='cpu'")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         put = lambda x: torch.from_numpy(x).to(dev)
         ps, pm = pair_tables(self.automaton)
-        self._pair_state, self._pair_match = put(ps), put(pm)
         if self.perf_mode == "dense":
-            self._table_flat = put(
-                dense_device_table(self.automaton).reshape(-1))
-            self._step = dense_step_fn(self._table_flat)
-            self.table_bytes = 4 * self._table_flat.numel()
+            steps = [dense_device_table(self.automaton).reshape(-1)]
         elif self.perf_mode == "hash":
-            t = {k: put(v) for k, v in
-                 hash_device_tables(self.automaton).items()}
-            self._step = hash_step_fn(t["rp_off"], t["rp_key"],
-                                      t["val_next"], t["val_ch"])
-            self.table_bytes = sum(4 * v.numel() for v in t.values())
+            t = hash_device_tables(self.automaton)
+            steps = [t[k] for k in ("rp_off", "rp_key", "val_next", "val_ch")]
         else:
             raise ValueError(f"unknown perf_mode {self.perf_mode!r}")
-        self.table_bytes += 8 * ps.shape[0]
+        #: lockstep_walk's tables: the pair tables, then the step's
+        self._tables = tuple(put(x) for x in (ps, pm, *steps))
+        self.table_bytes = sum(4 * t.numel() for t in self._tables)
 
     def match_device(self, data_u8: torch.Tensor) -> torch.Tensor:
         """uint8[N] on this device -> int32[num_tiles * tile] match IDs; the
-        padded tail reports 0."""
+        padded tail reports 0. On a CUDA device one kernel launch."""
         if data_u8.device != self.device:
             raise PfacError(PfacStatus.INVALID_PARAMETER,
                             f"data is on {data_u8.device}, matcher on "
@@ -280,18 +287,21 @@ class XlaMatcher:
             raise PfacError(PfacStatus.INVALID_PARAMETER,
                             "data must be a 1-D uint8 tensor")
         n = int(data_u8.shape[0])
-        num_tiles, padded = _pad_len(n, self.tile,
-                                     self.automaton.max_pattern_len)
-        return self._walk(sentinel_pad(data_u8, padded), num_tiles)
+        num_tiles, _ = _pad_len(n, self.tile, self.automaton.max_pattern_len)
+        return self._walk(data_u8.contiguous(), n, num_tiles)
 
-    def _walk(self, inp: torch.Tensor, num_tiles: int) -> torch.Tensor:
-        """``walk_tiles`` over a sentinel-padded int16 input on this
-        device, with this matcher's tables."""
+    def _walk(self, buf: torch.Tensor, n_valid: int,
+              num_tiles: int) -> torch.Tensor:
+        """The walk from each of the first ``num_tiles * tile`` positions
+        of the uint8 `buf` on this device, over its first `n_valid` bytes
+        (the sentinel past them), with this matcher's tables."""
         a = self.automaton
-        return walk_tiles(self._step, self._pair_state, self._pair_match, inp,
-                          num_final=a.num_final_states,
-                          max_len=a.max_pattern_len, tile=self.tile,
-                          num_tiles=num_tiles)
+        out = torch.empty(num_tiles * self.tile, dtype=torch.int32,
+                          device=buf.device)
+        return lockstep_walk(buf, n_valid, out, self._tables,
+                             perf_mode=self.perf_mode,
+                             num_final=a.num_final_states,
+                             max_len=a.max_pattern_len)
 
     def match(self, data) -> np.ndarray:
         """bytes in, int32[N] out (PFAC_matchFromHost analog)."""

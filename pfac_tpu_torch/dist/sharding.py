@@ -31,7 +31,8 @@ Engines: ``"sieve"``, a ``SieveMatcher`` a device, whose device pipeline
 device (``backends/program.py``: every shard of the device a branch of one
 CUDA graph, the count kernel after them), else ``pipeline.run`` a shard;
 ``"xla"``, an ``XlaMatcher`` a device,
-the lockstep walker with the sentinel at and past global position n;
+the lockstep walker over each shard's buffer as it is (one kernel launch
+a shard on CUDA), every byte at and past global position n a trap;
 ``"auto"``, the sieve engine on CUDA devices
 and the walker on the CPU, as the reference picks the sieve on a TPU mesh
 and the walker elsewhere (and the walker where the sieve's host tables
@@ -68,7 +69,7 @@ from ..backends.reduce import reduce_from_dense
 from ..backends.sieve_matcher import (_POS_LIMIT, TILE_ROWS, SieveMatcher,
                                       npad_for)
 from ..backends.sieve_tables import LANES
-from ..backends.xla import SENTINEL, DEFAULT_TILE, XlaMatcher
+from ..backends.xla import DEFAULT_TILE, XlaMatcher
 from ..runtime.handle import PlacementMode
 
 _ALIGN = 16        # K1 loads 16-byte vectors; it copies a buffer that is not
@@ -306,10 +307,7 @@ class ShardedMatcher:
                 res = eng._run(buf, n_valid,
                                npad_for(shard_len + self.halo, self.tile_rows))
             else:
-                inp = torch.full((shard_len + self.halo,), SENTINEL,
-                                 dtype=torch.int16, device=dev)
-                inp[:n_valid] = buf[:n_valid]
-                res = eng._walk(inp, shard_len // self.tile)
+                res = eng._walk(buf, n_valid, shard_len // self.tile)
         return res[:shard_len]
 
     def _programs(self, shards: list[torch.Tensor], shard_len: int, n: int,

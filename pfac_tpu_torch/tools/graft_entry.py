@@ -2,11 +2,12 @@
 repo's ``__graft_entry__.py``.
 
 * :func:`entry` -> ``(fn, example_args)``: one forward step of the lockstep
-  walker (``backends/xla.py``: the dense table, the fused pair tables, a
-  sentinel-padded input, :func:`~pfac_tpu_torch.backends.xla.walk_tiles`)
-  over the reference's example automaton (64 patterns of 2-11 printable
-  bytes, ``default_rng(7)``) and 8,192 random bytes (``default_rng(0)``),
-  the arguments on the device.
+  walker (the dense table and the fused pair tables of ``backends/xla.py``,
+  walked by :func:`~pfac_tpu_torch.backends.lockstep.lockstep_walk`: one
+  kernel launch on a CUDA device, the plain torch walk on the CPU) over
+  the reference's example automaton (64 patterns of 2-11 printable bytes,
+  ``default_rng(7)``) and 8,192 random bytes (``default_rng(0)``), the
+  arguments on the device.
 * :func:`dryrun_multichip` ``(n)``: one full sharded match over an
   n-shard mesh (``dist/sharding.py``; halo written into each shard, the
   count summed), with both engines (the lockstep walker, ``"xla"``, and
@@ -51,21 +52,20 @@ def entry(device="cuda"):
     """A forward step of the lockstep walker + its example arguments on
     `device`: ``fn(table_flat, pair_state, pair_match, data_u8)`` ->
     int32[num_tiles * TILE] longest-match IDs."""
-    from ..backends.xla import (_pad_len, dense_device_table, dense_step_fn,
-                                pair_tables, sentinel_pad, walk_tiles)
+    from ..backends.lockstep import lockstep_walk
+    from ..backends.xla import _pad_len, dense_device_table, pair_tables
 
     dev = torch.device(device)
     a = example_automaton()
     num_tiles, _ = _pad_len(ENTRY_BYTES, TILE, a.max_pattern_len)
 
     def fn(table_flat, pair_state, pair_match, data_u8):
-        _, padded = _pad_len(data_u8.shape[0], TILE, a.max_pattern_len)
-        inp = sentinel_pad(data_u8, padded)
-        return walk_tiles(
-            dense_step_fn(table_flat), pair_state, pair_match, inp,
-            num_final=a.num_final_states, max_len=a.max_pattern_len,
-            tile=TILE, num_tiles=num_tiles,
-        )
+        out = torch.empty(num_tiles * TILE, dtype=torch.int32,
+                          device=data_u8.device)
+        return lockstep_walk(
+            data_u8, data_u8.shape[0], out,
+            (pair_state, pair_match, table_flat), perf_mode="dense",
+            num_final=a.num_final_states, max_len=a.max_pattern_len)
 
     rng = np.random.default_rng(0)
     data = rng.integers(0, 256, size=ENTRY_BYTES, dtype=np.uint8)

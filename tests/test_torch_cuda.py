@@ -635,7 +635,8 @@ def test_lockstep_walker_on_card(dev, mode, n):
     host = _corpus(rng, pats, max(n, 200))[:n]
     data = torch.from_numpy(host).to(dev)
     on_card = XlaMatcher(a, perf_mode=mode, device=dev).match_device(data)
-    on_cpu = XlaMatcher(a, perf_mode=mode).match_device(data.cpu())
+    on_cpu = XlaMatcher(a, perf_mode=mode, device="cpu").match_device(
+        data.cpu())
     assert torch.equal(on_card.cpu(), on_cpu)
     sieve_res = pt.Matcher(automaton=a, device=dev).match_device(data)
     assert torch.equal(on_card[:n], sieve_res[:n])
@@ -643,6 +644,205 @@ def test_lockstep_walker_on_card(dev, mode, n):
     m = pt.Matcher(automaton=a, device=dev, backend="xla", perf_mode=mode)
     assert isinstance(m._engine(), XlaMatcher)
     assert m.match(host.tobytes()).tolist() == on_cpu[:n].tolist()
+
+
+def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len):
+    """The lockstep kernel and its plain version on the same card inputs;
+    the kernel's call counted (one launch of its mode's kernel) and run
+    where any host synchronisation raises -> (kernel, plain)."""
+    from pfac_tpu_torch.backends import lockstep
+    kw = dict(perf_mode=mode, num_final=num_final, max_len=max_len)
+    want = lockstep.lockstep_walk_plain(
+        data, n, torch.empty(npad, dtype=torch.int32, device=data.device),
+        tables, **kw)
+    out = torch.full((npad,), -7, dtype=torch.int32, device=data.device)
+    torch.cuda.synchronize()
+    before = dict(lockstep.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lockstep.lockstep_walk(data, n, out, tables, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got is out
+    assert {k: c - before[k] for k, c in lockstep.LAUNCHES.items()} == {
+        k: int(k == lockstep.KERNELS[mode]) for k in lockstep.LAUNCHES}
+    return got, want
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("n", [1, 1000, 131_073, 600_001])
+def test_lockstep_kernel_matches_plain(dev, mode, n):
+    # the kernel against its plain version, bit for bit, on the sizes of
+    # test_lockstep_walker_on_card; a buffer longer than n (bytes past n
+    # are the sentinel), and the tail past n all 0
+    from pfac_tpu_torch.backends.xla import DEFAULT_TILE, XlaMatcher
+    pats, rng = _ruleset(n + 17)
+    a = pt.Automaton.from_patterns(pats)
+    host = _corpus(rng, pats, max(n, 200) + 300)
+    data = torch.from_numpy(host).to(dev)
+    m = XlaMatcher(a, perf_mode=mode, device=dev)
+    npad = -(-n // DEFAULT_TILE) * DEFAULT_TILE
+    for npad_ in (npad, n + 3):
+        got, want = _lockstep_pair(data, n, npad_, m._tables, mode,
+                                   a.num_final_states, a.max_pattern_len)
+        assert torch.equal(got, want) and not got[n:].any()
+        if npad_ == npad:
+            assert torch.equal(m.match_device(data[:n]), got)
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+def test_lockstep_kernel_thousand_byte_pattern(dev, mode):
+    rng = np.random.default_rng(1000)
+    long = rng.integers(0, 256, size=1000, dtype=np.uint8).tobytes()
+    pats = [long, long[:3], long[500:504]]
+    host = rng.integers(0, 256, size=70_000, dtype=np.uint8)
+    for off in range(100, 66_000, 6_500):
+        host[off:off + 1000] = np.frombuffer(long, np.uint8)
+    host[-600:] = np.frombuffer(long[:600], np.uint8)    # cut by the end
+    a = pt.Automaton.from_patterns(pats)
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    m = XlaMatcher(a, perf_mode=mode, tile=4096, device=dev)
+    data = torch.from_numpy(host).to(dev)
+    got, want = _lockstep_pair(data, host.shape[0], 18 * 4096, m._tables,
+                               mode, a.num_final_states, a.max_pattern_len)
+    assert torch.equal(got, want) and int(got[100]) == 1
+    assert int(got[host.shape[0] - 600]) == 2
+    assert got[:host.shape[0]].tolist() == golden.match_edges_batch(
+        a, host).tolist()
+
+
+def test_lockstep_kernel_negative_hash_keys(dev):
+    # synthetic hash tables whose keys all have k >= 32768 (a negative
+    # int32 key; no ruleset yields one): the kernel's shifts are
+    # arithmetic, as the plain version's
+    rng = np.random.default_rng(5)
+    states, slots = 40, 256
+    e = states * slots
+    rp_off = np.arange(states, dtype=np.int64) * slots
+    rp_key = ((rng.integers(32768, 65536, size=states) << 16)
+              | (slots - 1)).astype(np.uint32).view(np.int32)
+    rp_off[0], rp_key[0] = e, 0
+    val_next, val_ch = np.zeros(e + 1, np.int32), np.full(e + 1, -1, np.int32)
+    letters = np.arange(60, 66)
+    for s in range(1, states):
+        key = np.int32(rp_key[s])
+        for ch in rng.choice(letters, size=3, replace=False):
+            x = (key >> 16) * np.int32(ch)
+            beta = (x & 0xFF) - (x >> 8)
+            slot = int(rp_off[s]) + int((beta + 257 if beta < 0 else beta)
+                                        & (key & 0xFFFF))
+            val_ch[slot], val_next[slot] = ch, rng.integers(0, states)
+    pair = [rng.integers(0, hi, size=257 * 257).astype(np.int32)
+            for hi in (states, 13)]
+    for t in pair:
+        t.reshape(257, 257)[256, :] = t.reshape(257, 257)[:, 256] = 0
+    tables = tuple(torch.from_numpy(t).to(dev) for t in (
+        *pair, rp_off.astype(np.int32), rp_key, val_next, val_ch))
+    data = torch.from_numpy(rng.choice(letters, size=200_000)
+                            .astype(np.uint8)).to(dev)
+    got, want = _lockstep_pair(data, 199_990, 200_704, tables, "hash", 12, 9)
+    assert torch.equal(got, want) and int((got > 0).sum()) > 1000
+
+
+def test_lockstep_kernel_100k_set(dev):
+    # the 100K set (dense; 6.16 GB of table) on 1 MB of its corpus: the
+    # kernel equals its plain version, the sieve engine and golden
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    brng = np.random.default_rng(7)
+    pats = rulesets.clamav_like_patterns(brng)
+    a = pt.Automaton.from_patterns(pats)
+    host = rulesets.planted_text(brng, pats, 1 << 20, 0.002)
+    data = torch.from_numpy(host).to(dev)
+    m = XlaMatcher(a, device=dev)
+    got, want = _lockstep_pair(data, host.shape[0], 1 << 20, m._tables,
+                               "dense", a.num_final_states, a.max_pattern_len)
+    assert torch.equal(got, want)
+    del m
+    torch.cuda.empty_cache()
+    sieve_res = pt.Matcher(automaton=a, device=dev).match_device(data)
+    assert torch.equal(got, sieve_res[:1 << 20])
+    assert got.cpu().tolist() == golden.match_edges_batch(a, host).tolist()
+
+
+def test_every_walker_tier_launches_the_kernel(dev, monkeypatch):
+    # Backend.XLA dense and hash, PlacementMode.HBM and the fallback from a
+    # sieve-table budget of 0: one kernel launch a match_device, no host
+    # synchronisation, no aten::nonzero; match_reduce_device the same
+    from torch.profiler import ProfilerActivity, profile
+
+    from pfac_tpu_torch.backends import lockstep
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    pats, rng = _ruleset(4242)
+    host = _corpus(rng, pats, 300_001)
+    data = torch.from_numpy(host).to(dev)
+    a = pt.Automaton.from_patterns(pats)
+    want = pt.Matcher(automaton=a, device=dev).match_device(data)
+    tiers = {"xla dense": dict(backend="xla"),
+             "xla hash": dict(backend="xla", perf_mode="hash"),
+             "hbm": dict(placement="hbm")}
+    mts = {k: pt.Matcher(automaton=a, device=dev, **kw)
+           for k, kw in tiers.items()}
+    monkeypatch.setattr(sieve_matcher, "_VMEM_TABLE_BUDGET", 0)
+    mts["fallback"] = pt.Matcher(automaton=a, device=dev)
+    for tier, mt in mts.items():
+        eng = mt._engine()
+        assert isinstance(eng, XlaMatcher), tier
+        mt.match_device(data)
+        torch.cuda.synchronize()
+        before = dict(lockstep.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                got = mt.match_device(data)
+                ids, pos, cnt = mt.match_reduce_device(data)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        kernel = lockstep.KERNELS[eng.perf_mode]
+        assert {k: c - before[k] for k, c in lockstep.LAUNCHES.items()} == {
+            k: 2 * int(k == kernel) for k in lockstep.LAUNCHES}, tier
+        assert not any(e.key == "aten::nonzero"
+                       for e in prof.key_averages()), tier
+        assert torch.equal(got[:host.shape[0]], want[:host.shape[0]]), tier
+        assert int(cnt) == int((got > 0).sum()), tier
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_walker_through_the_kernel(dev, mode, k):
+    # the walker engine on k shards of one card: one kernel launch a
+    # shard, equal in full to the single device's walker
+    from pfac_tpu_torch.backends import lockstep
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
+    pats, rng = _ruleset(99 + k)
+    host = _corpus(rng, pats, 1_000_003)
+    a = pt.Automaton.from_patterns(pats)
+    sm = ShardedMatcher(a, mesh=make_data_mesh(devices=[dev] * k),
+                        perf_mode=mode, tile=4096, engine="xla")
+    single = XlaMatcher(a, perf_mode=mode, tile=4096, device=dev)
+    want = single.match_device(torch.from_numpy(host).to(dev))
+    n = host.shape[0]
+    shards = sm._put(host, sm._shard_len(n))
+    torch.cuda.synchronize()
+    before = dict(lockstep.LAUNCHES)
+    res, cnt = sm.match_device(shards, n)
+    assert {c: x - before[c] for c, x in lockstep.LAUNCHES.items()} == {
+        c: k * int(c == lockstep.KERNELS[mode]) for c in lockstep.LAUNCHES}
+    assert torch.equal(torch.cat(res)[:n], want[:n])
+    assert int(cnt) == int((want > 0).sum())
+    assert np.array_equal(sm.match(host), want[:n].cpu().numpy())
+
+
+def test_graft_entry_walks_through_the_kernel(dev):
+    # entry()'s fn on the card is one launch of the dense kernel, equal to
+    # its result on the CPU (the plain version)
+    from pfac_tpu_torch.backends import lockstep
+    fn, args = graft_entry.entry(dev)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    before = lockstep.LAUNCHES["lockstep_dense_kernel"]
+    out = fn(*args)
+    assert lockstep.LAUNCHES["lockstep_dense_kernel"] == before + 1
+    assert torch.equal(out.cpu(), cpu_fn(*cpu_args))
 
 
 @pytest.mark.parametrize("npad", [1, 5, 4096, 4097, 3 * 4096 + 77,
@@ -675,8 +875,8 @@ def test_reduce_kernel_matches_plain(dev, npad, density, offset):
 def test_reduce_does_not_synchronize(dev):
     # match_reduce_device on both engines under the sync debug mode: the
     # reduce launches reduce_kernel and reduce_tail_kernel and never waits
-    # for the device (the lockstep walker's own match_device does, so its
-    # result is made first); the sieve engine's compaction runs once
+    # for the device, nor does the lockstep walker's match_device; the
+    # sieve engine's compaction runs once
     from pfac_tpu_torch.backends import reduce
     from pfac_tpu_torch.backends.xla import XlaMatcher
     pats, rng = _ruleset(77)
@@ -684,7 +884,7 @@ def test_reduce_does_not_synchronize(dev):
     data = torch.from_numpy(host).to(dev)
     m = pt.Matcher(pats, device=dev)
     m.match_reduce_device(data)                   # warm
-    xres = XlaMatcher(m.automaton, device=dev).match_device(data)
+    xm = XlaMatcher(m.automaton, device=dev)
     torch.cuda.synchronize()
     counts = (reduce.LAUNCHES["reduce_kernel"],
               reduce.LAUNCHES["reduce_tail_kernel"],
@@ -692,7 +892,7 @@ def test_reduce_does_not_synchronize(dev):
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = m.match_reduce_device(data)
-        xgot = reduce.reduce_from_dense(xres)
+        xgot = reduce.reduce_from_dense(xm.match_device(data))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (reduce.LAUNCHES["reduce_kernel"] - counts[0],

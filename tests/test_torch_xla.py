@@ -32,7 +32,7 @@ def _both(pats, data, mode="dense", tile=128, **kw):
     """-> (port, reference, golden) results of match(data)."""
     a = pt.Automaton.from_patterns(pats, **kw)
     ra = RefAutomaton.from_patterns(pats, **kw)
-    got = xla.XlaMatcher(a, perf_mode=mode, tile=tile).match(data)
+    got = xla.XlaMatcher(a, perf_mode=mode, tile=tile, device="cpu").match(data)
     want = np.asarray(ref.XlaMatcher(ra, perf_mode=mode, tile=tile).match(data))
     return got, want, golden.match_dense(ra, data)
 
@@ -66,7 +66,7 @@ def test_host_tables_equal_reference(seed):
 def test_readme_example(mode, example_pattern_path, example_input):
     a = pt.Automaton.from_pattern_file(example_pattern_path,
                                        hashed=mode == "hash")
-    m = xla.XlaMatcher(a, perf_mode=mode, tile=256)
+    m = xla.XlaMatcher(a, perf_mode=mode, tile=256, device="cpu")
     assert m.match(example_input).tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0, 0]
     ids, pos, n = m.match_reduce(example_input)
     assert (n, pos.tolist(), ids.tolist()) == (5, [0, 1, 2, 4, 6],
@@ -96,7 +96,8 @@ def test_lengths_around_tile_multiples(n):
     # match_device's padded length and tail are the reference's
     a, ra = pt.Automaton.from_patterns(pats), RefAutomaton.from_patterns(pats)
     u8 = np.frombuffer(data, np.uint8)
-    out = xla.XlaMatcher(a, tile=64).match_device(torch.from_numpy(u8.copy()))
+    out = xla.XlaMatcher(a, tile=64, device="cpu").match_device(
+        torch.from_numpy(u8.copy()))
     want = np.asarray(ref.XlaMatcher(ra, tile=64).match_device(u8))
     assert out.dtype == torch.int32 and out.numpy().tolist() == want.tolist()
     assert out.shape[0] == -(-n // 64) * 64 and not out[n:].any()
@@ -104,7 +105,7 @@ def test_lengths_around_tile_multiples(n):
 
 def test_input_shorter_than_tile():
     a = pt.Automaton.from_patterns([b"ab"])
-    m = xla.XlaMatcher(a, perf_mode="dense", tile=1024)
+    m = xla.XlaMatcher(a, perf_mode="dense", tile=1024, device="cpu")
     assert m.match(b"ab").tolist() == [1, 0]
     assert m.match(b"a").tolist() == [0]
     assert m.match(b"").tolist() == []
@@ -152,7 +153,7 @@ def test_pieces_cross_tiles(monkeypatch):
 
 def test_empty_and_trap_only_input():
     a = pt.Automaton.from_patterns([b"zz"])
-    m = xla.XlaMatcher(a, tile=32)
+    m = xla.XlaMatcher(a, tile=32, device="cpu")
     assert m.match(b"").tolist() == []
     ids, pos, n = m.match_reduce(b"aaaaaaa")
     assert n == 0 and ids.tolist() == [] and pos.tolist() == []
@@ -163,11 +164,12 @@ def test_reduce_vs_reference(seed):
     pats, data = _rand_case(seed)
     a, ra = pt.Automaton.from_patterns(pats), RefAutomaton.from_patterns(pats)
     g_ids, g_pos, g_n = golden.reduce_result(golden.match_dense(ra, data))
-    ids, pos, n = xla.XlaMatcher(a, tile=64).match_reduce(data)
+    ids, pos, n = xla.XlaMatcher(a, tile=64, device="cpu").match_reduce(data)
     assert (n, pos.tolist(), ids.tolist()) == (g_n, g_pos.tolist(),
                                                g_ids.tolist())
     u8 = np.frombuffer(data, np.uint8)
-    d_ids, d_pos, d_n = xla.XlaMatcher(a, tile=64).match_reduce_device(
+    d_ids, d_pos, d_n = xla.XlaMatcher(
+        a, tile=64, device="cpu").match_reduce_device(
         torch.from_numpy(u8.copy()))
     r_ids, r_pos, r_n = ref.XlaMatcher(ra, tile=64).match_reduce_device(u8)
     assert d_n.dim() == 0 and d_n.dtype == torch.int32 and int(d_n) == int(r_n)
@@ -177,16 +179,18 @@ def test_reduce_vs_reference(seed):
 
 def test_all_positions_match():
     a = pt.Automaton.from_patterns([b"a"])
-    ids, pos, n = xla.XlaMatcher(a, tile=8).match_reduce(b"aaaa")
+    ids, pos, n = xla.XlaMatcher(a, tile=8, device="cpu").match_reduce(b"aaaa")
     assert n == 4 and pos.tolist() == [0, 1, 2, 3] and ids.tolist() == [1] * 4
 
 
 def test_device_mismatch_and_dtype_raise():
-    m = xla.XlaMatcher(pt.Automaton.from_patterns(README), tile=16)
+    m = xla.XlaMatcher(pt.Automaton.from_patterns(README), tile=16,
+                       device="cpu")
     with pytest.raises(pt.PfacError):
         m.match_device(torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
-        xla.XlaMatcher(pt.Automaton.from_patterns(README), perf_mode="x")
+        xla.XlaMatcher(pt.Automaton.from_patterns(README), perf_mode="x",
+                       device="cpu")
 
 
 def test_pair_tables_without_trie_equal_reference():
@@ -207,7 +211,8 @@ def test_hash_mode_row_of_256_raises_like_reference():
     # C library's slot schedule stops at 255); dense mode serves it
     pats = [bytes([i, 65]) for i in range(256)]
     with pytest.raises(pt.PfacError, match="256 transitions"):
-        xla.XlaMatcher(pt.Automaton.from_patterns(pats), perf_mode="hash")
+        xla.XlaMatcher(pt.Automaton.from_patterns(pats), perf_mode="hash",
+                       device="cpu")
     with pytest.raises(pfac_tpu.PfacError, match="256 transitions"):
         ref.XlaMatcher(RefAutomaton.from_patterns(pats), perf_mode="hash")
     data = bytes(range(256)) + b"A\x07A"
