@@ -79,17 +79,22 @@ Phases, each on lines of its own:
    and hash, ``PlacementMode.HBM``, and the fallback from a sieve-table
    budget patched to 0 in this process; ``Backend.PALLAS`` over that budget
    raises) over the Snort set on the whole 128 MB random and DEFCON-like
-   corpora, and the 100K ruleset in dense mode on its whole corpus (its
-   hash tables are refused, as in the reference): each kernel bit-equal to
-   its plain version on each corpus; a line a tier and corpus with the
+   corpora, ``Backend.XLA`` dense over ``aaaa`` on the all-match corpus and
+   over the Snort set on ``virus_dense_worst``, and the 100K ruleset in
+   dense mode on its whole corpus (its hash tables are refused, as in the
+   reference, and so are its pair states forced into shared memory): each
+   kernel in each placement of the pair states (``smem``, the compacted
+   form in shared memory, where it fits; ``global``) bit-equal to its
+   plain version on each whole corpus, with its profiler time and its time
+   with max_len 2 (the two-byte stage alone), and the share of positions
+   alive after two bytes; a line a tier and corpus with the
    launch counts reset just before one ``match_device`` and read just
    after (its mode's kernel once; once more in ``match_reduce_device``),
    both under ``torch.cuda.set_sync_debug_mode("error")`` with no
    ``aten::nonzero``, the result equal in full to the sieve engine's, the
    e2e time and GB/s, the kernel's profiler time, its bound (5 B a
    position), the busy share and the plain version's time on 16 MB;
-   golden on 16 MB of each corpus (4 MB of the 100K corpus); each kernel
-   with max_len 2 (the pair lookups alone) beside its whole walk; the
+   golden on 16 MB of each corpus (4 MB of the 100K corpus); the
    device reduce (``match_reduce_device``) on
    every corpus of phase 6, launch counts reset just before it, under
    ``torch.cuda.set_sync_debug_mode("error")``: reduce_kernel and
@@ -288,23 +293,28 @@ def golden_check(automaton, host: np.ndarray, result: torch.Tensor,
           f"({dt:.1f} s, {off / MB / dt:.2f} MB/s on the host)")
 
 
-def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
+def lockstep_phase(dev, name_limit, a, m, snort, big, more) -> dict:
     """Phase 10a: the lockstep walker (``backends/xla.py``, its kernels
     ``csrc/lockstep.cu``) on the card at full width. Every tier that takes
     it (Backend.XLA dense and hash, PlacementMode.HBM, and the fallback
     from a sieve-table budget patched to 0) over the Snort set on each of
-    `snort`'s whole corpora, and the 100K ruleset in dense mode on its
-    whole corpus (`big`: automaton, sieve engine's Matcher, device corpus,
-    host corpus). For each tier and corpus: launch counts reset just before
-    one match_device and read just after (its mode's kernel once), then
-    the same for match_reduce_device, both under
-    torch.cuda.set_sync_debug_mode("error") and torch.profiler (no
-    aten::nonzero); the result equal in full to the sieve engine's; e2e,
-    the kernel's profiler time, its bound, the busy share and the plain
-    version's time on SLICE bytes. Each kernel against its plain version on
-    each whole corpus, bit-equal; golden on SLICE bytes (BIG_SLICE of the
-    100K corpus); each kernel with max_len 2 beside its whole walk. -> the
-    kernels' rows' numbers (on the DEFCON-like corpus)."""
+    `snort`'s whole corpora, the 100K ruleset in dense mode on its whole
+    corpus (`big`: automaton, sieve engine's Matcher, device corpus, host
+    corpus), and Backend.XLA dense over each of `more`'s (name, automaton,
+    the sieve engine's result on it, device corpus, host corpus). For each
+    tier and corpus: launch counts reset just before one match_device and
+    read just after (its mode's kernel once), then the same for
+    match_reduce_device, both under torch.cuda.set_sync_debug_mode("error")
+    and torch.profiler (no aten::nonzero); the result equal in full to the
+    sieve engine's; e2e, the kernel's profiler time, its bound, the busy
+    share and the plain version's time on SLICE bytes. Each kernel in each
+    placement of the pair states it can take (smem where their compacted
+    form fits, global) against its plain version on each whole corpus,
+    bit-equal, with its profiler time and its time with max_len 2 (the
+    two-byte stage alone); the share of positions alive after two bytes;
+    golden on SLICE bytes (BIG_SLICE of the 100K corpus). -> the kernels'
+    rows' numbers (on the DEFCON-like corpus, the placement the walker
+    takes)."""
     from torch.profiler import ProfilerActivity, profile
 
     import pfac_tpu_torch as pt
@@ -333,42 +343,83 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
     for tier, mt in walkers.items():
         e = mt._engine()
         assert isinstance(e, XlaMatcher), (tier, type(e))
+        assert e.placement == "smem", (tier, e.placement)
         print(f"walker {tier}: XlaMatcher, perf_mode {e.perf_mode}, tile "
-              f"{e.tile}, {e.table_bytes} bytes of tables on the card")
+              f"{e.tile}, {e.table_bytes} bytes of tables on the card, pair "
+              f"states in {e.placement} ({4 * e._pairs.numel()} bytes of "
+              f"compacted form, {e._pairs.numel() - lockstep.FORM_HEAD} "
+              f"nonzero pairs)")
     rows = {k: {"launches": 0, "err": 0} for k in lockstep.KERNELS.values()}
 
+    def alive_share(e, d) -> str:
+        """Positions whose state after two bytes is not 0 and that walk on
+        (i + 2 < n, max_len > 2), on the card."""
+        n = d.shape[0]
+        c = torch.full((n + 1,), 256, dtype=torch.int64, device=dev)
+        c[:n] = d
+        s2 = torch.take(e._tables[0], c[:n] * 257 + c[1:])
+        del c
+        live = int((s2[: max(n - 2, 0)] != 0).sum())
+        if e.automaton.max_pattern_len <= 2:
+            live = 0
+        return f"{live} of {n} positions ({100 * live / n:.2f}%)"
+
     def against_plain(e, cname, d) -> dict:
-        """The kernel of e's mode against its plain version on the whole
-        corpus (launches not counted); the plain version's times on the
-        whole corpus and on SLICE bytes."""
+        """The kernel of e's mode in each placement its pair states take
+        against its plain version on the whole corpus (launches not
+        counted), each placement's profiler time and its max_len-2 time;
+        the plain version's times on the whole corpus and on SLICE
+        bytes."""
         kernel = lockstep.KERNELS[e.perf_mode]
+        ea = e.automaton
         n = d.shape[0]
         npad = e.match_device(d).shape[0]
-        kw = dict(perf_mode=e.perf_mode,
-                  num_final=e.automaton.num_final_states,
-                  max_len=e.automaton.max_pattern_len)
-        got = lockstep.lockstep_walk(
-            d, n, torch.empty(npad, dtype=torch.int32, device=dev),
-            e._tables, **kw)
+        kw = dict(perf_mode=e.perf_mode, num_final=ea.num_final_states)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         want = lockstep.lockstep_walk_plain(
             d, n, torch.empty(npad, dtype=torch.int32, device=dev),
-            e._tables, **kw)
+            e._tables, max_len=ea.max_pattern_len, **kw)
         end.record()
         end.synchronize()
-        err = max_abs_err(got, want)
-        assert err == 0, f"{kernel} != plain on {cname}"
-        rows[kernel]["err"] = max(rows[kernel]["err"], err)
         out16 = torch.empty(SLICE, dtype=torch.int32, device=dev)
         plain16 = cuda_ms(lambda: lockstep.lockstep_walk_plain(
-            d, min(n, SLICE), out16, e._tables, **kw), reps=3, warmup=1)
-        print(f"{kernel} vs plain {cname} {n // MB} MB: bit-equal "
-              f"({int((got > 0).sum())} matching positions); plain "
-              f"{start.elapsed_time(end):.3f} ms on the whole corpus, "
-              f"{plain16:.3f} ms on {SLICE // MB} MB  [{name_limit}]")
-        del got, want
-        return {"plain_full": start.elapsed_time(end), "plain16": plain16}
+            d, min(n, SLICE), out16, e._tables, max_len=ea.max_pattern_len,
+            **kw), reps=3, warmup=1)
+        del out16
+        bound = bound_ms(lockstep.bound_bytes(npad, n))
+        res = {"plain_full": start.elapsed_time(end), "plain16": plain16,
+               "bound": bound}
+        places = (["smem"] if e.placement == "smem" else []) + ["global"]
+        out = torch.empty(npad, dtype=torch.int32, device=dev)
+        for place in places:
+            pairs = e._pairs if place == "smem" else None
+            run = (lambda max_len=ea.max_pattern_len, pairs=pairs:
+                   lockstep.lockstep_walk(d, n, out, e._tables,
+                                          max_len=max_len, pairs=pairs, **kw))
+            out.fill_(-7)
+            run()
+            err = max_abs_err(out, want)
+            assert err == 0, f"{kernel} [{place}] != plain on {cname}"
+            rows[kernel]["err"] = max(rows[kernel]["err"], err)
+            t = kernel_ms(device_ms(run, need=(kernel,)), kernel,
+                          cuda_ms(run, batch=10))
+            run2 = lambda run=run: run(max_len=2)
+            t2 = kernel_ms(device_ms(run2, need=(kernel,)), kernel,
+                           cuda_ms(run2, batch=10))
+            res[place] = t
+            print(f"{kernel} [{place}] vs plain {cname} {n // MB} MB: "
+                  f"bit-equal ({int((want > 0).sum())} matching positions); "
+                  f"{t:.4f} ms (profiler), bound {bound:.4f} ms "
+                  f"({100 * bound / t:.1f}%); breakdown: with max_len 2 (the "
+                  f"two-byte stage and the write alone) {t2:.4f} ms = "
+                  f"{100 * t2 / t:.1f}% of the walk  [{name_limit}]",
+                  flush=True)
+        print(f"{kernel} plain {cname}: {res['plain_full']:.3f} ms on the "
+              f"whole corpus, {plain16:.3f} ms on {SLICE // MB} MB; alive "
+              f"after two bytes: {alive_share(e, d)}  [{name_limit}]")
+        del want, out
+        return res
 
     def walker_line(tier, mt, cname, d, want, plain) -> dict:
         """One tier on one whole corpus, counted and checked, timed."""
@@ -404,32 +455,17 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
         kms = kernel_ms(device_ms(lambda: mt.match_device(d), need=(kernel,)),
                         kernel, ms)
         bound = bound_ms(lockstep.bound_bytes(got.shape[0], n))
-        print(f"walker {tier} {cname} {n // MB} MB: {kernel} launched "
-              f"{per[kernel]}x by match_device and {per_reduce[kernel]}x by "
-              f"match_reduce_device (count {c}), aten::nonzero {nonzero}, no "
-              f"host synchronisation; equal in full to the sieve engine; "
-              f"e2e {ms:.4f} ms = {n / ms / 1e6:.2f} GB/s; {kernel} "
-              f"{kms:.4f} ms (profiler), bound {bound:.4f} ms "
-              f"({100 * bound / kms:.1f}%), busy {100 * kms / ms:.1f}%; "
-              f"plain {plain['plain16']:.3f} ms on {SLICE // MB} MB  "
-              f"[{name_limit}]", flush=True)
+        print(f"walker {tier} {cname} {n // MB} MB: {kernel} [{e.placement}] "
+              f"launched {per[kernel]}x by match_device and "
+              f"{per_reduce[kernel]}x by match_reduce_device (count {c}), "
+              f"aten::nonzero {nonzero}, no host synchronisation; equal in "
+              f"full to the sieve engine; e2e {ms:.4f} ms = "
+              f"{n / ms / 1e6:.2f} GB/s; {kernel} {kms:.4f} ms (profiler), "
+              f"bound {bound:.4f} ms ({100 * bound / kms:.1f}%), busy "
+              f"{100 * kms / ms:.1f}%; plain {plain['plain16']:.3f} ms on "
+              f"{SLICE // MB} MB  [{name_limit}]", flush=True)
         return {"ms": kms, "bound_ms": bound, "result": got}
 
-    def pair_lookups_alone(e, cname, d, whole_ms) -> None:
-        """Where a kernel's time goes: the same launch with max_len 2 (the
-        pair tables' lookups and the write, no step), by the profiler."""
-        kernel = lockstep.KERNELS[e.perf_mode]
-        out = torch.empty(e.match_device(d).shape[0], dtype=torch.int32,
-                          device=dev)
-        run = lambda: lockstep.lockstep_walk(
-            d, d.shape[0], out, e._tables, perf_mode=e.perf_mode,
-            num_final=e.automaton.num_final_states, max_len=2)
-        t = kernel_ms(device_ms(run, need=(kernel,)), kernel, cuda_ms(run))
-        print(f"breakdown walker {cname}: {kernel} with max_len 2 (the pair "
-              f"lookups and the write alone, no step) {t:.4f} ms of the "
-              f"whole walk's {whole_ms:.4f} ms (profiler)  [{name_limit}]")
-
-    timed = {}
     for cname, d, host in snort:
         want = m.match_device(d)
         plain = {mode: against_plain(walkers[f"Backend.XLA {mode}"]._engine(),
@@ -439,19 +475,21 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
             r = walker_line(tier, mt, cname, d, want,
                             plain[mt._engine().perf_mode])
             got = r.pop("result")
-            timed[(tier, cname)] = r
         golden_check(a, host, got, f"walker {cname}", SLICE, 0.0)
-        for mode in ("dense", "hash"):
-            tier = f"Backend.XLA {mode}"
-            pair_lookups_alone(walkers[tier]._engine(), cname, d,
-                               timed[(tier, cname)]["ms"])
         if cname == "defcon_like":
             for mode in ("dense", "hash"):
-                t = timed[(f"Backend.XLA {mode}", cname)]
                 rows[lockstep.KERNELS[mode]].update(
-                    ms=t["ms"], bound_ms=t["bound_ms"],
+                    ms=plain[mode]["smem"], bound_ms=plain[mode]["bound"],
                     plain_ms=plain[mode]["plain_full"])
         del want, got
+    for cname, am, want, d, host in more:
+        mx = pt.Matcher(automaton=am, device=dev, backend="xla")
+        e = mx._engine()
+        plain = against_plain(e, cname, d)
+        r = walker_line("Backend.XLA dense", mx, cname, d, want, plain)
+        golden_check(am, host, r.pop("result"), f"walker {cname}", SLICE,
+                     0.0)
+        del mx, e
     ab, mb, big_d, big_host = big
     try:
         pt.Matcher(automaton=ab, device=dev, backend="xla",
@@ -462,15 +500,28 @@ def lockstep_phase(dev, name_limit, a, m, snort, big) -> dict:
     t0 = time.perf_counter()
     mx = pt.Matcher(automaton=ab, device=dev, backend="xla")
     e = mx._engine()
-    print(f"walker 100K dense: {e.table_bytes} bytes of tables on the card; "
-          f"set-up {time.perf_counter() - t0:.1f} s")
+    assert e.placement == "global", e.placement
+    form = torch.from_numpy(lockstep.pair_form(e._tables[0].cpu().numpy()))
+    try:
+        lockstep.lockstep_walk(
+            big_d, big_d.shape[0], torch.empty(1, dtype=torch.int32,
+                                               device=dev), e._tables,
+            perf_mode="dense", num_final=ab.num_final_states,
+            max_len=ab.max_pattern_len, pairs=form.to(dev))
+        raise AssertionError("100K pair states forced into shared memory")
+    except ValueError as err:
+        print(f"walker 100K pair states forced into shared memory: refused "
+              f"({err})")
+    del form
+    print(f"walker 100K dense: {e.table_bytes} bytes of tables on the card, "
+          f"pair states in {e.placement}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
     want = mb.match_device(big_d)
     plain = against_plain(e, "big_ruleset", big_d)
     r = walker_line("Backend.XLA dense", mx, "big_ruleset", big_d, want,
                     plain)
     golden_check(ab, big_host, r.pop("result"), "walker big_ruleset",
                  BIG_SLICE, 0.0)
-    pair_lookups_alone(e, "big_ruleset", big_d, r["ms"])
     del mx, e, want, walkers
     torch.cuda.empty_cache()
     return rows
@@ -1404,6 +1455,7 @@ def main() -> int:
                                             gathers, harness,
                                             lanegather2_micro,
                                             lanegather_micro, rulesets)
+    from pfac_tpu_torch.tools import bench_matrix
     cuda_ms = gathers.cuda_ms
 
     # 1. the card
@@ -2014,10 +2066,15 @@ def main() -> int:
     # fuzz on the card
     t10 = time.perf_counter()
     torch.cuda.empty_cache()
+    (virus,) = bench_matrix.prepare(dev, ["virus_dense_worst"])
     walk_rows = lockstep_phase(
         dev, name_limit, a, m,
         [("random", rand_d, rand), ("defcon_like", def_d, defcon)],
-        (ab, mb, big_d, big))
+        (ab, mb, big_d, big),
+        [("all_match", m1.automaton, m1.match_device(a_d), a_d, all_a),
+         ("virus_dense_worst", a, virus.engine.match_device(virus.data),
+          virus.data, virus.data.cpu().numpy())])
+    del virus
     red = reduce_phase(dev, name_limit, corpora)
     surfaces_phase(dev)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")

@@ -71,10 +71,10 @@ _SIGNATURES = {
     # device, r, len, stride, nseg, out, stream
     "pfac_count": [ctypes.c_int, _P, ctypes.c_int64, ctypes.c_int64, _I, _P,
                    _P],
-    # device, data, n, npad, pair_state, pair_match, hashed, t0..t3,
-    # num_final, max_len, out, stream
+    # device, data, n, npad, pair_state, pair_match, form, form_words,
+    # hashed, t0..t3, num_final, max_len, out, stream
     "pfac_lockstep": [ctypes.c_int, _P, ctypes.c_int64, ctypes.c_int64, _P,
-                      _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+                      _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     # spec, data[], n[], result, scratch, status, nstatus, epoch, count_len,
     # program (out)
     "pfac_program_create": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,

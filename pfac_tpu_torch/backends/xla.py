@@ -7,8 +7,9 @@ sieve engine's host tables cannot be built (``select.try_build``). It walks
 a failureless automaton from every start position. The reference compiles
 the walk into one device program a call; on a CUDA device the port makes
 it one launch of a hand-written kernel (``lockstep.py``,
-``csrc/lockstep.cu``: one thread a position, breaking out of its own walk,
-reading the uint8 input and its length directly), with no host
+``csrc/lockstep.cu``: the two-byte stage from the pair states, in shared
+memory where their compacted form fits, then the longer walks packed onto
+busy lanes; reading the uint8 input and its length directly), with no host
 synchronisation and no padded copy. On the CPU it walks in torch
 (:func:`walk_tiles`, the kernel's plain version). The reference's names
 are kept, so each function has its counterpart:
@@ -53,7 +54,7 @@ from ..core.tables import HASH_KEY_K_MASKBITS, HASH_KEY_S_MASK
 from ..core.trie import CHAR_SET, TRAP_STATE
 from ..status import PfacError, PfacStatus
 from .golden import _as_u8
-from .lockstep import lockstep_walk
+from .lockstep import lockstep_walk, pair_form, placement_for
 from .reduce import reduce_from_dense
 
 SENTINEL = CHAR_SET    # 256: the padding value; column 256 is all-trap
@@ -247,7 +248,9 @@ def sentinel_pad(data_u8: torch.Tensor, padded: int) -> torch.Tensor:
 class XlaMatcher:
     """Holds the device tables and walks every start position. On the card
     unless `device` says otherwise: ``"cuda"`` is the current GPU, and with
-    no GPU visible it raises."""
+    no GPU visible it raises. `placement` is where the kernel reads the
+    pair states (``lockstep.placement_for``: ``"smem"`` where their
+    compacted form fits, else ``"global"``)."""
 
     automaton: Automaton
     perf_mode: str = "dense"      # "dense" | "hash"
@@ -274,6 +277,11 @@ class XlaMatcher:
             raise ValueError(f"unknown perf_mode {self.perf_mode!r}")
         #: lockstep_walk's tables: the pair tables, then the step's
         self._tables = tuple(put(x) for x in (ps, pm, *steps))
+        form = pair_form(ps)
+        self.placement = placement_for(form)
+        #: the compacted pair states, kept on the device where the kernel
+        #: reads them from shared memory
+        self._pairs = put(form) if self.placement == "smem" else None
         self.table_bytes = sum(4 * t.numel() for t in self._tables)
 
     def match_device(self, data_u8: torch.Tensor) -> torch.Tensor:
@@ -301,7 +309,7 @@ class XlaMatcher:
         return lockstep_walk(buf, n_valid, out, self._tables,
                              perf_mode=self.perf_mode,
                              num_final=a.num_final_states,
-                             max_len=a.max_pattern_len)
+                             max_len=a.max_pattern_len, pairs=self._pairs)
 
     def match(self, data) -> np.ndarray:
         """bytes in, int32[N] out (PFAC_matchFromHost analog)."""

@@ -128,11 +128,15 @@ cudaError_t reduce_launch(int device, const void* result, int32_t npad,
 // words apart, added into the int64 *out (zeroed by the caller)
 cudaError_t count_launch(int device, const void* r, int64_t len,
                          int64_t stride, int32_t nseg, void* out, Launch* l);
-// lockstep.cu: lockstep_dense_kernel, or lockstep_hash_kernel if `hashed`
-cudaError_t lockstep_launch(const void* data, int64_t n, int64_t npad,
-                            const void* pair_state, const void* pair_match,
-                            int32_t hashed, const void* t0, const void* t1,
-                            const void* t2, const void* t3, int32_t num_final,
-                            int32_t max_len, void* out, Launch* l);
+// lockstep.cu: lockstep_dense_kernel, or lockstep_hash_kernel if `hashed`;
+// the pair states from `form` in shared memory, or from pair_state through
+// L1/L2 where `form` is null
+cudaError_t lockstep_launch(int device, const void* data, int64_t n,
+                            int64_t npad, const void* pair_state,
+                            const void* pair_match, const void* form,
+                            int32_t form_words, int32_t hashed, const void* t0,
+                            const void* t1, const void* t2, const void* t3,
+                            int32_t num_final, int32_t max_len, void* out,
+                            Launch* l);
 
 }  // namespace pfac

@@ -1,6 +1,6 @@
 """Same-card A/B of ``match_device`` between checkouts of the repository.
 
-    python -m pfac_tpu_torch.experiments.match_ab DIR_A DIR_B [DIR ...]
+    python -m pfac_tpu_torch.experiments.match_ab [--backend xla] DIR_A DIR_B [DIR ...]
 
 Each argument is the root of a checkout (this one is ``.``). The script runs
 one worker process per argument, in the order given, so a call such as
@@ -21,6 +21,20 @@ time and not the wrapper's). It uses only the API every slice of the port
 since the second has (``Matcher``, ``match_device``,
 ``_engine().tile_rows``, ``sieve.sieve``, ``block_walk.block_walk``).
 Without CUDA it exits 1.
+
+``--backend xla`` times the lockstep walker instead
+(``Matcher(backend="xla")``, which older trees have too):
+the Snort set over the random and DEFCON-like corpora in dense and hash
+mode, the 100K set over its corpus in dense mode, ``aaaa`` over the
+all-match corpus and the Snort set over ``virus_dense_worst`` (8 MB of
+concatenated patterns, drawn next from the same stream, as
+``tools/bench_matrix.py`` draws it), dense. A line a corpus and mode as
+above, with the walker's placement of the pair states (``placement``:
+``"smem"`` or ``"global"``; ``null`` on a tree without placements); and,
+where a tree reads the pair states from shared memory, the same kernel
+again with them forced through L1/L2 (``lockstep_walk(...,
+pairs=None)``, a line with ``"forced": "global"``: its profiler time and
+fingerprint).
 """
 from __future__ import annotations
 
@@ -143,7 +157,85 @@ def corpora(pt, dev) -> list:
             ("mixed", mm, mixed)]
 
 
-def worker(tree: str) -> int:
+def walker_corpora(pt, dev) -> list:
+    """The lockstep walker's cases, made from their seeds with this
+    checkout's rulesets.py: [(name, perf_mode, Matcher of the tree `pt`
+    with backend "xla", host bytes)]."""
+    import numpy as np
+
+    rs = _rulesets()
+    pats = rs.snort_like_patterns()
+    rng = np.random.default_rng(42)
+    rand = rng.integers(0, 256, size=128 * MB, dtype=np.uint8)
+    defcon = rs.planted_text(rng, pats, 128 * MB, 0.015)
+    virus = rs.pattern_stream(rng, pats, 8 * MB)
+    brng = np.random.default_rng(7)
+    bpats = rs.clamav_like_patterns(brng)
+    big = rs.planted_text(brng, bpats, 128 * MB, 0.002)
+    snort = {mode: pt.Matcher(pats, device=dev, backend="xla",
+                              perf_mode=mode) for mode in ("dense", "hash")}
+    cases = [(name, mode, snort[mode], host)
+             for name, host in (("random", rand), ("defcon_like", defcon))
+             for mode in ("dense", "hash")]
+    return cases + [
+        ("big_ruleset", "dense", pt.Matcher(bpats, device=dev, backend="xla"),
+         big),
+        ("all_match", "dense", pt.Matcher([b"aaaa"], device=dev,
+                                          backend="xla"),
+         np.full(100 * MB, ord("a"), np.uint8)),
+        ("virus_dense_worst", "dense", snort["dense"], virus)]
+
+
+def _fingerprint(res, n: int) -> list[int]:
+    import torch
+
+    ids = res[:n].to(torch.int64)
+    pos = torch.arange(ids.numel(), device=ids.device, dtype=torch.int64)
+    return [int((ids > 0).sum()), int((ids * (pos % 65521)).sum())]
+
+
+def walker_worker(tree: str, dev) -> None:
+    import torch
+
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch.backends import lockstep
+
+    t0 = time.perf_counter()
+    cases = walker_corpora(pt, dev)
+    print(f"worker {tree}: set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, mode, mt, host in cases:
+        d = torch.from_numpy(host).to(dev)
+        eng = mt._engine()
+        place = getattr(eng, "placement", None)
+        n = host.shape[0]
+        res = mt.match_device(d)
+        ms = _ms(lambda: mt.match_device(d))
+        kernels = _kernels(lambda: mt.match_device(d))
+        line = {"tree": tree, "backend": "xla", "corpus": name, "mode": mode,
+                "placement": place, "ms": ms, "GB/s": n / ms / 1e6,
+                "fingerprint": _fingerprint(res, n), "device_ms": kernels,
+                "busy_share": round(sum(kernels.values()) / ms, 4),
+                "clocks": _clocks()}
+        print(json.dumps(line), flush=True)
+        if place == "smem":
+            a = eng.automaton
+            out = torch.empty_like(res)
+            run = lambda: lockstep.lockstep_walk(
+                d, n, out, eng._tables, perf_mode=mode,
+                num_final=a.num_final_states, max_len=a.max_pattern_len)
+            run()
+            print(json.dumps({
+                "tree": tree, "backend": "xla", "corpus": name, "mode": mode,
+                "forced": "global", "fingerprint": _fingerprint(out, n),
+                "device_ms": _kernels(run), "clocks": _clocks()}),
+                flush=True)
+            del out
+        del d, res
+        torch.cuda.empty_cache()
+
+
+def worker(tree: str, backend: str = "sieve") -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -154,6 +246,9 @@ def worker(tree: str) -> int:
         return 1
     assert os.path.abspath(pt.__file__).startswith(os.path.abspath(tree))
     dev = torch.device("cuda:0")
+    if backend == "xla":
+        walker_worker(tree, dev)
+        return 0
     t0 = time.perf_counter()
     cases = corpora(pt, dev)
     print(f"worker {tree}: set-up {time.perf_counter() - t0:.1f} s",
@@ -161,9 +256,7 @@ def worker(tree: str) -> int:
     for name, mt, host in cases:
         d = torch.from_numpy(host).to(dev)
         res = mt.match_device(d)
-        ids = res[: host.shape[0]].to(torch.int64)
-        pos = torch.arange(ids.numel(), device=dev, dtype=torch.int64)
-        fingerprint = [int((ids > 0).sum()), int((ids * (pos % 65521)).sum())]
+        fingerprint = _fingerprint(res, host.shape[0])
         ms = _ms(lambda: mt.match_device(d))
         kernels = _kernels(lambda: mt.match_device(d))
         busy = sum(kernels.values())
@@ -174,20 +267,23 @@ def worker(tree: str) -> int:
                           "busy_share": round(busy / ms, 4),
                           "k3_batched_ms": _k3_batched(mt, d),
                           "clocks": _clocks()}), flush=True)
-        del d, res, ids, pos
+        del d, res
         torch.cuda.empty_cache()
     return 0
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) >= 2 and argv[0] == "--worker":
-        return worker(argv[1])
-    if not argv:
+    if len(argv) >= 3 and argv[0] == "--worker":
+        return worker(argv[1], argv[2])
+    backend = "sieve"
+    if argv[:1] == ["--backend"] and len(argv) >= 2:
+        backend, argv = argv[1], argv[2:]
+    if not argv or backend not in ("sieve", "xla"):
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--worker", tree]).returncode
+                             "--worker", tree, backend]).returncode
         if rc:
             return rc
     return 0

@@ -4,7 +4,8 @@ repo's ``__graft_entry__.py``.
 * :func:`entry` -> ``(fn, example_args)``: one forward step of the lockstep
   walker (the dense table and the fused pair tables of ``backends/xla.py``,
   walked by :func:`~pfac_tpu_torch.backends.lockstep.lockstep_walk`: one
-  kernel launch on a CUDA device, the plain torch walk on the CPU) over
+  kernel launch on a CUDA device, the pair states read through L1/L2 since
+  ``fn`` takes no compacted form; the plain torch walk on the CPU) over
   the reference's example automaton (64 patterns of 2-11 printable bytes,
   ``default_rng(7)``) and 8,192 random bytes (``default_rng(0)``), the
   arguments on the device.

@@ -646,7 +646,8 @@ def test_lockstep_walker_on_card(dev, mode, n):
     assert m.match(host.tobytes()).tolist() == on_cpu[:n].tolist()
 
 
-def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len):
+def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len,
+                   pairs=None):
     """The lockstep kernel and its plain version on the same card inputs;
     the kernel's call counted (one launch of its mode's kernel) and run
     where any host synchronisation raises -> (kernel, plain)."""
@@ -660,7 +661,8 @@ def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len):
     before = dict(lockstep.LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = lockstep.lockstep_walk(data, n, out, tables, **kw)
+        got = lockstep.lockstep_walk(data, n, out, tables, pairs=pairs,
+                                     **kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert got is out
@@ -669,25 +671,100 @@ def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len):
     return got, want
 
 
+def _lockstep_placements(data, n, npad, m):
+    """_lockstep_pair in each placement the XlaMatcher `m`'s pair states
+    take (smem where their form fits, and global), each equal to the plain
+    version -> the kernel's result."""
+    a = m.automaton
+    places = [(None, "global")]
+    if m.placement == "smem":
+        places.append((m._pairs, "smem"))
+    for pairs, placement in places:
+        got, want = _lockstep_pair(data, n, npad, m._tables, m.perf_mode,
+                                   a.num_final_states, a.max_pattern_len,
+                                   pairs)
+        assert torch.equal(got, want), placement
+        assert not got[n:].any(), placement
+    return got
+
+
 @pytest.mark.parametrize("mode", ["dense", "hash"])
 @pytest.mark.parametrize("n", [1, 1000, 131_073, 600_001])
 def test_lockstep_kernel_matches_plain(dev, mode, n):
-    # the kernel against its plain version, bit for bit, on the sizes of
-    # test_lockstep_walker_on_card; a buffer longer than n (bytes past n
-    # are the sentinel), and the tail past n all 0
+    # the kernel in each placement against its plain version, bit for bit,
+    # on the sizes of test_lockstep_walker_on_card; a buffer longer than n
+    # (bytes past n are the sentinel), and the tail past n all 0
     from pfac_tpu_torch.backends.xla import DEFAULT_TILE, XlaMatcher
     pats, rng = _ruleset(n + 17)
     a = pt.Automaton.from_patterns(pats)
     host = _corpus(rng, pats, max(n, 200) + 300)
     data = torch.from_numpy(host).to(dev)
     m = XlaMatcher(a, perf_mode=mode, device=dev)
+    assert m.placement == "smem"
     npad = -(-n // DEFAULT_TILE) * DEFAULT_TILE
     for npad_ in (npad, n + 3):
-        got, want = _lockstep_pair(data, n, npad_, m._tables, mode,
-                                   a.num_final_states, a.max_pattern_len)
-        assert torch.equal(got, want) and not got[n:].any()
+        got = _lockstep_placements(data, n, npad_, m)
         if npad_ == npad:
             assert torch.equal(m.match_device(data[:n]), got)
+
+
+README_PATTERNS = [b"AB", b"ABG", b"BEDE", b"ED"]
+
+
+def _lockstep_cases():
+    """name -> (patterns, host bytes, n) of the kernel's edge cases."""
+    rng = np.random.default_rng(4096)
+    snort = rulesets.snort_like_patterns()
+    cut_host = rulesets.planted_text(rng, snort, 3 * 4096 + 777, 0.05)
+    concat = b"".join(snort[i] for i in rng.permutation(len(snort)))
+    concat = np.frombuffer(concat * -(-(8 << 20) // len(concat)),
+                           np.uint8)[: 8 << 20]
+    long = rng.integers(0, 256, size=1000, dtype=np.uint8)
+    across = rng.integers(0, 256, size=8 << 20, dtype=np.uint8)
+    for off in range(77, across.shape[0] - 1000, 9_000):
+        across[off:off + 1000] = long
+    return {
+        "conformance": (README_PATTERNS, np.frombuffer(b"ABEDEDABG",
+                                                       np.uint8), 9),
+        "n0": (README_PATTERNS, np.zeros(0, np.uint8), 0),
+        "n1": (README_PATTERNS, np.frombuffer(b"A", np.uint8), 1),
+        "n2": (README_PATTERNS, np.frombuffer(b"AB", np.uint8), 2),
+        # n not a multiple of the kernel's 4,096-position tile, in a
+        # buffer 500 bytes longer
+        "cut_tile": (snort, cut_host, 3 * 4096 + 277),
+        # every position of every tile walks to depth 4
+        "all_walk": ([b"aaaa"], np.full(5 * 4096 + 3, ord("a"), np.uint8),
+                     5 * 4096 + 3),
+        # long walks everywhere, 8 MB: more tiles than CTAs, so walks are
+        # carried from one tile's walk phase to the next
+        "snort_concatenated": (snort, concat, concat.shape[0]),
+        # 1,000-step walks across many tiles
+        "long_walks": ([long.tobytes(), long[:3].tobytes()], across,
+                       across.shape[0] - 5),
+    }
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("case", ["conformance", "n0", "n1", "n2",
+                                  "cut_tile", "all_walk",
+                                  "snort_concatenated", "long_walks"])
+def test_lockstep_kernel_cases(dev, mode, case):
+    # each kernel in each placement against its plain version: one launch
+    # a call, no host synchronisation, bit-equal, and equal to golden
+    from pfac_tpu_torch.backends.xla import XlaMatcher
+    pats, host, n = _lockstep_cases()[case]
+    a = pt.Automaton.from_patterns(pats, hashed=mode == "hash")
+    m = XlaMatcher(a, perf_mode=mode, tile=4096, device=dev)
+    data = torch.from_numpy(host.copy()).to(dev)
+    npad = max(1, -(-n // 4096)) * 4096
+    got = _lockstep_placements(data, n, npad, m)
+    if n:
+        assert got[:n].cpu().tolist() == golden.match_edges_batch(
+            a, host[:n]).tolist()
+    if case == "conformance":
+        assert got[:9].tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
+    if case == "all_walk":
+        assert (got[:n - 3] == 1).all() and not got[n - 3:].any()
 
 
 @pytest.mark.parametrize("mode", ["dense", "hash"])
@@ -703,9 +780,8 @@ def test_lockstep_kernel_thousand_byte_pattern(dev, mode):
     from pfac_tpu_torch.backends.xla import XlaMatcher
     m = XlaMatcher(a, perf_mode=mode, tile=4096, device=dev)
     data = torch.from_numpy(host).to(dev)
-    got, want = _lockstep_pair(data, host.shape[0], 18 * 4096, m._tables,
-                               mode, a.num_final_states, a.max_pattern_len)
-    assert torch.equal(got, want) and int(got[100]) == 1
+    got = _lockstep_placements(data, host.shape[0], 18 * 4096, m)
+    assert int(got[100]) == 1
     assert int(got[host.shape[0] - 600]) == 2
     assert got[:host.shape[0]].tolist() == golden.match_edges_batch(
         a, host).tolist()
@@ -714,7 +790,10 @@ def test_lockstep_kernel_thousand_byte_pattern(dev, mode):
 def test_lockstep_kernel_negative_hash_keys(dev):
     # synthetic hash tables whose keys all have k >= 32768 (a negative
     # int32 key; no ruleset yields one): the kernel's shifts are
-    # arithmetic, as the plain version's
+    # arithmetic, as the plain version's. The pair match is derived from
+    # the pair state as xla.pair_tables derives it (the kernel reads its
+    # column 256 only); the form in shared memory takes the letters' pairs
+    from pfac_tpu_torch.backends import lockstep
     rng = np.random.default_rng(5)
     states, slots = 40, 256
     e = states * slots
@@ -732,21 +811,33 @@ def test_lockstep_kernel_negative_hash_keys(dev):
             slot = int(rp_off[s]) + int((beta + 257 if beta < 0 else beta)
                                         & (key & 0xFFFF))
             val_ch[slot], val_next[slot] = ch, rng.integers(0, states)
-    pair = [rng.integers(0, hi, size=257 * 257).astype(np.int32)
-            for hi in (states, 13)]
-    for t in pair:
-        t.reshape(257, 257)[256, :] = t.reshape(257, 257)[:, 256] = 0
-    tables = tuple(torch.from_numpy(t).to(dev) for t in (
-        *pair, rp_off.astype(np.int32), rp_key, val_next, val_ch))
+    ps = rng.integers(0, states, size=(257, 257)).astype(np.int32)
+    ps[256, :] = ps[:, 256] = 0
+    m1 = rng.integers(0, 13, size=257).astype(np.int32)
+    m1[256] = 0
     data = torch.from_numpy(rng.choice(letters, size=200_000)
                             .astype(np.uint8)).to(dev)
-    got, want = _lockstep_pair(data, 199_990, 200_704, tables, "hash", 12, 9)
-    assert torch.equal(got, want) and int((got > 0).sum()) > 1000
+    steps = [torch.from_numpy(t).to(dev)
+             for t in (rp_off.astype(np.int32), rp_key, val_next, val_ch)]
+    live = np.zeros((257, 257), bool)
+    live[np.ix_(letters, letters)] = True
+    for pair_state, smem in ((ps, False), (np.where(live, ps, 0), True)):
+        pm = np.where((pair_state >= 1) & (pair_state <= 12), pair_state,
+                      m1[:, None]).astype(np.int32)
+        form = torch.from_numpy(lockstep.pair_form(pair_state)).to(dev)
+        tables = (torch.from_numpy(pair_state.reshape(-1)).to(dev),
+                  torch.from_numpy(pm.reshape(-1)).to(dev), *steps)
+        got, want = _lockstep_pair(data, 199_990, 200_704, tables, "hash",
+                                   12, 9, form if smem else None)
+        assert torch.equal(got, want) and int((got > 0).sum()) > 1000
 
 
 def test_lockstep_kernel_100k_set(dev):
-    # the 100K set (dense; 6.16 GB of table) on 1 MB of its corpus: the
-    # kernel equals its plain version, the sieve engine and golden
+    # the 100K set (dense; 6.16 GB of table) on 1 MB of its corpus: its
+    # pair states take the global placement, its form forced on the
+    # kernel raises; the kernel equals its plain version, the sieve engine
+    # and golden
+    from pfac_tpu_torch.backends import lockstep
     from pfac_tpu_torch.backends.xla import XlaMatcher
     brng = np.random.default_rng(7)
     pats = rulesets.clamav_like_patterns(brng)
@@ -754,9 +845,15 @@ def test_lockstep_kernel_100k_set(dev):
     host = rulesets.planted_text(brng, pats, 1 << 20, 0.002)
     data = torch.from_numpy(host).to(dev)
     m = XlaMatcher(a, device=dev)
-    got, want = _lockstep_pair(data, host.shape[0], 1 << 20, m._tables,
-                               "dense", a.num_final_states, a.max_pattern_len)
-    assert torch.equal(got, want)
+    assert m.placement == "global" and m._pairs is None
+    form = torch.from_numpy(lockstep.pair_form(m._tables[0].cpu().numpy()))
+    with pytest.raises(ValueError, match="budget"):
+        lockstep.lockstep_walk(
+            data, host.shape[0], torch.empty(1 << 20, dtype=torch.int32,
+                                             device=dev), m._tables,
+            perf_mode="dense", num_final=a.num_final_states,
+            max_len=a.max_pattern_len, pairs=form.to(dev))
+    got = _lockstep_placements(data, host.shape[0], 1 << 20, m)
     del m
     torch.cuda.empty_cache()
     sieve_res = pt.Matcher(automaton=a, device=dev).match_device(data)

@@ -1,8 +1,11 @@
 """The lockstep walk's plain version (``pfac_tpu_torch.backends.lockstep``),
 through the uint8 + n interface its kernel takes, against the reference's
 ``pfac_tpu.backends.xla`` on JAX's CPU: the same seeded numpy bytes in
-dense and hash mode, bit-exact (tolerance 0). The kernel itself is held
-against this plain version on the card (``tests/test_torch_cuda.py``)."""
+dense and hash mode, bit-exact (tolerance 0); the compacted pair form the
+kernel keeps in shared memory (``pair_form``, ``pair_lookup_plain``)
+against the reference's ``pair_tables`` on every pair, and the placement
+rule. The kernel itself is held against this plain version on the card
+(``tests/test_torch_cuda.py``)."""
 import jax
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from pfac_tpu.backends import xla as ref
 from pfac_tpu.dist import sharding as ref_sharding
 from pfac_tpu_torch.backends import lockstep, xla
 from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
+from pfac_tpu_torch.experiments import rulesets
 
 README = [b"AB", b"ABG", b"BEDE", b"ED"]
 
@@ -253,3 +257,120 @@ def test_xla_matcher_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(pt.PfacError, match="no GPU"):
         xla.XlaMatcher(a, device="cuda:0")
     assert xla.XlaMatcher(a, device="cpu").device == torch.device("cpu")
+
+
+def _pair_sets():
+    rng = np.random.default_rng(256)
+    every_first = [bytes([b]) + rng.integers(0, 256, size=int(k),
+                                             dtype=np.uint8).tobytes()
+                   for b, k in zip(range(256), rng.integers(0, 4, size=256))]
+    return {
+        "conformance": README,
+        # a match after one byte at every first byte: m1 is a whole row
+        "one_byte": [bytes([b]) for b in range(256)] + [b"ab", b"abc"],
+        "duplicates": [b"ab", b"ab", b"abcde", b"abcde", b"x", b"x", b"xy"],
+        "snort": rulesets.snort_like_patterns(),
+        "all_first_bytes": every_first,
+    }
+
+
+@pytest.mark.parametrize("name", ["conformance", "one_byte", "duplicates",
+                                  "snort", "all_first_bytes"])
+def test_pair_form_equals_reference_pair_tables(name):
+    # the compacted form and the m2 derived from it (m1 = pair_match's
+    # column 256) equal the reference's pair tables on all 257 x 257 pairs
+    pats = _pair_sets()[name]
+    a = pt.Automaton.from_patterns(pats)
+    want_s, want_m = ref.pair_tables(pfac_tpu.Automaton.from_patterns(pats))
+    ps, pm = xla.pair_tables(a)
+    form = lockstep.pair_form(ps)
+    assert form.dtype == np.int32
+    assert form.shape[0] == lockstep.FORM_HEAD + int((want_s != 0).sum())
+    c = torch.arange(257)
+    s2, m2 = lockstep.pair_lookup_plain(
+        torch.from_numpy(form), torch.from_numpy(pm), a.num_final_states,
+        c.repeat_interleave(257), c.repeat(257))
+    assert s2.dtype == m2.dtype == torch.int32
+    assert np.array_equal(s2.numpy(), np.asarray(want_s))
+    assert np.array_equal(m2.numpy(), np.asarray(want_m))
+    if name == "one_byte":
+        assert (np.asarray(want_m).reshape(257, 257)[:256, 256] > 0).all()
+    if name == "all_first_bytes":
+        assert (np.asarray(want_s).reshape(257, 257)[:256].any(axis=1)
+                | (np.asarray(want_m).reshape(257, 257)[:256, 256] > 0)).all()
+
+
+def test_pair_form_refuses_a_live_sentinel():
+    ps = np.zeros(257 * 257, np.int32)
+    ps[256 * 257 + 3] = 5
+    with pytest.raises(ValueError, match="sentinel"):
+        lockstep.pair_form(ps)
+    ps[:] = 0
+    ps[3 * 257 + 256] = 5
+    with pytest.raises(ValueError, match="sentinel"):
+        lockstep.pair_form(ps)
+
+
+def test_placement_rule():
+    # the Snort set's form goes to shared memory; a set whose nonzero pairs
+    # pass the budget goes through L1/L2; its form forced on the kernel
+    # raises
+    snort = pt.Automaton.from_patterns(rulesets.snort_like_patterns())
+    m = xla.XlaMatcher(snort, device="cpu")
+    assert m.placement == "smem" and m._pairs is not None
+    assert 4 * m._pairs.shape[0] <= lockstep.PAIR_SMEM_BYTES
+    rng = np.random.default_rng(20_000)
+    wide = list(dict.fromkeys(
+        bytes(r) for r in rng.integers(0, 256, size=(20_000, 3),
+                                       dtype=np.uint8)))
+    a = pt.Automaton.from_patterns(wide)
+    form = lockstep.pair_form(xla.pair_tables(a)[0])
+    assert 4 * form.shape[0] > lockstep.PAIR_SMEM_BYTES
+    assert lockstep.placement_for(form) == "global"
+    w = xla.XlaMatcher(a, device="cpu")
+    assert w.placement == "global" and w._pairs is None
+    assert lockstep.placement_for(None) == "global"
+    data = torch.zeros(16, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="budget"):
+        lockstep.lockstep_walk(
+            data, 16, torch.empty(16, dtype=torch.int32), w._tables,
+            perf_mode="dense", num_final=a.num_final_states,
+            max_len=a.max_pattern_len, pairs=torch.from_numpy(form))
+
+
+@pytest.mark.parametrize("mode", ["dense", "hash"])
+@pytest.mark.parametrize("placement", ["smem", "global"])
+def test_xla_matcher_each_placement_equals_reference(mode, placement):
+    # the walk on the CPU with the compacted form and without it (the plain
+    # walk either way) equals the JAX XlaMatcher, Snort set over planted
+    # text
+    pats = rulesets.snort_like_patterns()
+    rng = np.random.default_rng(13)
+    data = rulesets.planted_text(rng, pats, 20_000, 0.05)
+    a = pt.Automaton.from_patterns(pats, hashed=mode == "hash")
+    m = xla.XlaMatcher(a, perf_mode=mode, tile=4096, device="cpu")
+    assert m.placement == "smem"
+    got = lockstep.lockstep_walk(
+        torch.from_numpy(data), data.shape[0],
+        torch.empty(m.match_device(torch.from_numpy(data)).shape[0],
+                    dtype=torch.int32), m._tables, perf_mode=mode,
+        num_final=a.num_final_states, max_len=a.max_pattern_len,
+        pairs=m._pairs if placement == "smem" else None)
+    ra = pfac_tpu.Automaton.from_patterns(pats, hashed=mode == "hash")
+    want = np.asarray(ref.XlaMatcher(ra, perf_mode=mode, tile=4096)
+                      .match_device(data))
+    assert got.numpy().tolist() == want.tolist() and (want > 0).sum() > 100
+
+
+def test_compacted_form_argument_checked():
+    a = pt.Automaton.from_patterns(README)
+    m = xla.XlaMatcher(a, tile=16, device="cpu")
+    data = torch.zeros(9, dtype=torch.uint8)
+    out = torch.empty(16, dtype=torch.int32)
+    kw = dict(perf_mode="dense", num_final=4, max_len=4)
+    for bad in (m._pairs.long(), m._pairs[:100], m._pairs[::2]):
+        with pytest.raises(ValueError, match="compacted pair form"):
+            lockstep.lockstep_walk(data, 9, out, m._tables, pairs=bad, **kw)
+    got = lockstep.lockstep_walk(data, 9, out, m._tables, pairs=m._pairs,
+                                 **kw)
+    assert not got.any()
