@@ -180,6 +180,8 @@ import time
 import numpy as np
 import torch
 
+from pfac_tpu_torch import trace
+
 MB = 1 << 20
 CORPUS = 128 * MB
 BENCH1 = 100 * MB          # Benchmark I corpora
@@ -428,20 +430,21 @@ def lockstep_phase(dev, name_limit, a, m, snort, big, more) -> dict:
         n = d.shape[0]
         mt.match_device(d)                        # warm
         torch.cuda.synchronize()
-        lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+        kernels = tuple(lockstep.KERNELS.values())
+        trace.reset()
         torch.cuda.set_sync_debug_mode("error")
         try:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
                 got = mt.match_device(d)
-                per = dict(lockstep.LAUNCHES)
-                lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+                per = trace.launches(*kernels)
                 ids, pos, cnt = mt.match_reduce_device(d)
-                per_reduce = dict(lockstep.LAUNCHES)
+                per_reduce = {k: c - per[k] for k, c in
+                              trace.launches(*kernels).items()}
         finally:
             torch.cuda.set_sync_debug_mode(0)
         nonzero = sum(ev.count for ev in prof.key_averages()
                       if ev.key == "aten::nonzero")
-        once = {k: int(k == kernel) for k in lockstep.LAUNCHES}
+        once = {k: int(k == kernel) for k in kernels}
         assert per == once and per_reduce == once, (tier, cname, per,
                                                     per_reduce)
         assert nonzero == 0, (tier, cname, nonzero)
@@ -539,7 +542,7 @@ def time_reduce(nm: str, res: torch.Tensor, c: int, name_limit: str):
     npad = res.shape[0]
     run = lambda: reduce.reduce_from_dense(res)
     ms = cuda_ms(run, batch=BATCH)
-    times = device_ms(run, need=tuple(reduce.LAUNCHES))
+    times = device_ms(run, need=reduce.KERNELS)
     main_dev = kernel_ms(times, "reduce_kernel", ms)
     tail_dev = kernel_ms(times, "reduce_tail_kernel", ms)
     nonzero_ms = cuda_ms(lambda: torch.nonzero(res > 0), batch=BATCH)
@@ -567,8 +570,7 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
     for _, mt, d, *_ in corpora:                  # warm
         mt.match_reduce_device(d)
     torch.cuda.synchronize()
-    for k in reduce.LAUNCHES:
-        reduce.LAUNCHES[k] = 0
+    trace.reset()
     reduced = []
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -576,10 +578,10 @@ def reduce_phase(dev, name_limit, corpora) -> dict:
             reduced.append(mt.match_reduce_device(d))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    launches = dict(reduce.LAUNCHES)
+    launches = trace.launches(*reduce.KERNELS)
     print(f"reduce path launches: {json.dumps(launches)} over "
           f"{len(corpora)} corpora under set_sync_debug_mode('error')")
-    assert launches == dict.fromkeys(reduce.LAUNCHES, len(corpora)), launches
+    assert launches == dict.fromkeys(reduce.KERNELS, len(corpora)), launches
     err, rows = 0, None
     for (nm, mt, d, *_), (ids, pos, cnt) in zip(corpora, reduced):
         res = mt.match_device(d)
@@ -649,24 +651,21 @@ def surfaces_phase(dev) -> None:
 
 
 def path_launches() -> dict[str, int]:
-    """Each main-path kernel's launches since the counts were reset."""
-    from pfac_tpu_torch.backends import (block_walk, compact, csr_walk, sieve,
-                                         walk)
-    return {**sieve.LAUNCHES, **compact.LAUNCHES,
-            "walk_kernel": walk.LAUNCHES,
-            "block_walk_kernel": block_walk.LAUNCHES,
-            "csr_walk_kernel": csr_walk.LAUNCHES}
+    """Each main-path kernel's launches since the counters were reset."""
+    from pfac_tpu_torch.backends import compact, sieve
+    return trace.launches(*sieve.KERNELS, *compact.KERNELS, "walk_kernel",
+                          "block_walk_kernel", "csr_walk_kernel")
+
+
+def launch_count(kernel: str) -> int:
+    """A kernel's launches (or the programs', `kernel` "program") since
+    the counters were reset."""
+    return trace.counters()[f"launch.{kernel}"]
 
 
 def reset_launches() -> None:
-    from pfac_tpu_torch.backends import (block_walk, compact, count, csr_walk,
-                                         program, sieve, walk)
     torch.cuda.synchronize()
-    for c in (sieve.LAUNCHES, compact.LAUNCHES):
-        for k in c:
-            c[k] = 0
-    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
-    count.LAUNCHES = program.LAUNCHES = 0
+    trace.reset()
 
 
 def boundary_plants(host: np.ndarray, pat: bytes, shard_len: int,
@@ -836,13 +835,13 @@ def sharded_phase(dev, name_limit, corpora) -> None:
         want = XlaMatcher(mt.automaton, device=dev).match_device(d[:SLICE])
         shards = sm._put(d[:SLICE], sm._shard_len(SLICE))
         torch.cuda.synchronize()
-        lockstep.LAUNCHES.update(dict.fromkeys(lockstep.LAUNCHES, 0))
+        trace.reset()
         torch.cuda.set_sync_debug_mode("error")
         try:
             res, cnt = sm.match_device(shards, SLICE)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        per = dict(lockstep.LAUNCHES)
+        per = trace.launches(*lockstep.KERNELS.values())
         assert per == {"lockstep_dense_kernel": k,
                        "lockstep_hash_kernel": 0}, per
         assert torch.equal(torch.cat(res)[:SLICE], want[:SLICE])
@@ -1023,9 +1022,10 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     torch.cuda.empty_cache()
 
     fn, args = graft_entry.entry(dev)
-    before = dict(lockstep.LAUNCHES)
+    before = trace.launches(*lockstep.KERNELS.values())
     out = fn(*args)
-    per = {k: c - before[k] for k, c in lockstep.LAUNCHES.items()}
+    per = {k: c - before[k] for k, c in
+           trace.launches(*lockstep.KERNELS.values()).items()}
     assert per == {"lockstep_dense_kernel": 1, "lockstep_hash_kernel": 0}, per
     cpu_fn, cpu_args = graft_entry.entry("cpu")
     assert torch.equal(out.cpu(), cpu_fn(*cpu_args)), "entry() != CPU"
@@ -1067,8 +1067,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
     import pfac_tpu_torch as pt
     from pfac_tpu_torch import _build
     from pfac_tpu_torch.backends import (block_walk, compact, count, golden,
-                                         pipeline, program, reduce, sieve,
-                                         walk)
+                                         pipeline, reduce, sieve, walk)
     from pfac_tpu_torch.backends.sieve_matcher import npad_for
     from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
     from pfac_tpu_torch.experiments import rulesets
@@ -1126,7 +1125,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
                             wt.arena.numel(), k3_res, wt.desc.data_ptr(),
                             nsteps, look, tcap, match.data_ptr(), stream)
         lib.pfac_compact_scan(0, counts.data_ptr(), nblocks, thresh,
-                              offsets.data_ptr(), stream)
+                              offsets.data_ptr(), None, stream)
         lib.pfac_compact(0, bits.data_ptr(), counts.data_ptr(),
                          offsets.data_ptr(), nblocks, block, thresh,
                          pos.data_ptr(), stream)
@@ -1187,7 +1186,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
         n_ = d_.shape[0]
         e.match_device(d_)                          # warm
         reset_launches()
-        before, c_before = program.LAUNCHES, dict(reduce.LAUNCHES)
+        before, c_before = (launch_count("program"),
+                            trace.launches(*reduce.KERNELS))
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             got = e.match_device(d_)
         torch.cuda.synchronize()
@@ -1198,8 +1198,10 @@ def program_phase(dev, name_limit, corpora) -> dict:
                 "compact_scan_kernel": 1, "compact_kernel": 1}
         want.update({"walk_kernel": 1, "block_walk_kernel": 1}
                     if e._walk is not None else {"csr_walk_kernel": 1})
-        assert per == want and program.LAUNCHES == before + 1, (nm, per)
-        assert nonzero == 0 and reduce.LAUNCHES == c_before, nm
+        assert per == want and launch_count("program") == before + 1, \
+            (nm, per)
+        assert nonzero == 0 and trace.launches(*reduce.KERNELS) == c_before, \
+            nm
         assert torch.equal(got, wrappers(e, d_)), f"{nm}: program != wrappers"
         golden_check(e.automaton, host, got, f"program {nm}", BIG_SLICE,
                      0.0)
@@ -1315,8 +1317,9 @@ def program_phase(dev, name_limit, corpora) -> dict:
             res_, cnt = sm.match_device(shards, n_)
             torch.cuda.synchronize()
             per = {kk: v for kk, v in path_launches().items() if v}
-            assert program.LAUNCHES == 1 and count.LAUNCHES == 1, (nm, k)
-            count_launches += count.LAUNCHES
+            assert launch_count("program") == launch_count(
+                "count_kernel") == 1, (nm, k)
+            count_launches += launch_count("count_kernel")
             assert all(v == k for v in per.values()), (nm, k, per)
             old, old_cnt = chain()
             assert torch.equal(torch.cat(res_)[:n_], single[:n_]), (nm, k)
@@ -1367,7 +1370,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
     host16 = host[:16 * MB]
     whole = mt_.match(host16)
     sizes = [1 * MB + 17, 3 * MB + 101, 5 * MB + 3]
-    before, nprog = program.LAUNCHES, len(mt_._engine()._programs)
+    before, nprog = launch_count("program"), len(mt_._engine()._programs)
     sm_ = mt_.stream()
     parts, off, k = [], 0, 0
     while off < host16.shape[0]:
@@ -1381,7 +1384,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
     assert starts == sorted(starts) and np.array_equal(streamed, whole)
     print(f"stream: Matcher(device='cuda').stream() over {host16.shape[0] // MB}"
           f" MB of defcon_like in {k} chunks of {sizes} bytes: equal to the "
-          f"whole-buffer match; {program.LAUNCHES - before} program launches,"
+          f"whole-buffer match; {launch_count('program') - before} program "
+          f"launches,"
           f" {len(mt_._engine()._programs) - nprog} new programs")
     texts = [p for p in rulesets.snort_like_patterns() if b"\n" not in p]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1393,12 +1397,12 @@ def program_phase(dev, name_limit, corpora) -> dict:
         for mode, extra in (("stream", ["--stream", "--stream-chunk",
                                         str(3 * MB + 5)]), ("whole", [])):
             buf = io.StringIO()
-            before = program.LAUNCHES
+            before = launch_count("program")
             with contextlib.redirect_stdout(buf):
                 assert cli.main(["match", "-P", pf, "-I", inf, "--head", "50",
                                  *extra]) == 0
             outs[mode] = buf.getvalue()
-            assert program.LAUNCHES > before, mode
+            assert launch_count("program") > before, mode
         a_txt = pt.Automaton.from_pattern_file(pf)
     assert outs["stream"] == outs["whole"], "cli --stream != cli"
     gids, gpos, gn = golden.reduce_result(
@@ -1704,28 +1708,16 @@ def main() -> int:
         ("mixed", mm, mix_d, mixed, SLICE, 0.0),
         ("f1_entry_tables", mf, f1_d, f1, F1_BYTES, GOLDEN_SECONDS),
     ]
-    counters = (sieve.LAUNCHES, compact.LAUNCHES)
-
-    def launches() -> dict[str, int]:
-        return {**sieve.LAUNCHES, **compact.LAUNCHES,
-                "walk_kernel": walk.LAUNCHES,
-                "block_walk_kernel": block_walk.LAUNCHES,
-                "csr_walk_kernel": csr_walk.LAUNCHES}
-
-    torch.cuda.synchronize()
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
+    reset_launches()
     results, per_corpus = [], []
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _, mt, d, _, _, _ in corpora:
-            before = launches()
+            before = path_launches()
             results.append(mt.match_device(d))
-            after = launches()
+            after = path_launches()
             per_corpus.append({k: after[k] - before[k] for k in after})
     torch.cuda.synchronize()
-    main_launches = launches()
+    main_launches = path_launches()
     nonzero = sum(e.count for e in prof.key_averages()
                   if e.key == "aten::nonzero")
     print(f"main path launches: {json.dumps(main_launches)}; aten::nonzero "
@@ -1746,7 +1738,7 @@ def main() -> int:
     for (nm, mt, d, host, step, secs), res, per in zip(corpora, results,
                                                        per_corpus):
         e = mt._engine()
-        assert sum(per[k] for k in sieve.LAUNCHES) == 1, (nm, per)
+        assert sum(per[k] for k in sieve.KERNELS) == 1, (nm, per)
         assert per["compact_scan_kernel"] == per["compact_kernel"] == 1, \
             (nm, per)
         # each tier's walker launches once a call, whatever the count
@@ -2012,9 +2004,8 @@ def main() -> int:
         lanegather2_micro.cases(dev),
         gather_micro.arena_cases(gather_micro.arenas_of(eng, engb)))
     torch.cuda.synchronize()
-    for k in gathers.LAUNCHES:
-        gathers.LAUNCHES[k] = 0
-    checked, g_err = [], dict.fromkeys(gathers.LAUNCHES, 0)
+    trace.reset()
+    checked, g_err = [], dict.fromkeys(gathers.KERNELS, 0)
     for item in micro:
         if isinstance(item, harness.Refusal):
             print(harness.refuse(item))
@@ -2023,7 +2014,7 @@ def main() -> int:
         item.expect = None
         checked.append(item)
     torch.cuda.synchronize()
-    g_launches = dict(gathers.LAUNCHES)
+    g_launches = trace.launches(*gathers.KERNELS)
     print(f"micro-benchmark launches: {json.dumps(g_launches)}; "
           f"{len(checked)} cases bit-equal to their plain versions and to "
           f"the reference cases' numpy expectations")
@@ -2178,7 +2169,7 @@ def main() -> int:
             cnt["ms"], cnt["plain_ms"], cnt["bound_ms"], cnt["library_ms"])
     r["launches"] = cnt["launches"]
     kernels.append(r)
-    for k in gathers.LAUNCHES:
+    for k in gathers.KERNELS:
         r = row(k, "gather_micro.cu", replaces[k], g_err[k], rep[k]["ms"],
                 rep[k]["plain_ms"], rep[k]["bound_ms"], rep[k]["library_ms"])
         r["launches"] = g_launches[k]

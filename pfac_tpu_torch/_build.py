@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import threading
 
+from . import trace
+
 _LOCK = threading.Lock()
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -38,8 +40,8 @@ _SIGNATURES = {
     # bits, counts, block, stream
     "pfac_sieve": [ctypes.c_int, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                    _I, _P],
-    # device, counts, nblocks, thresh, offsets, stream
-    "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P],
+    # device, counts, nblocks, thresh, offsets, counters, stream
+    "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P, _P],
     # device, bits, counts, offsets, nblocks, block, thresh, pos, stream
     "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
     # device, result, npad, ids, pos, count, status, nstatus, epoch, stream
@@ -160,13 +162,14 @@ def build(verbose: bool = False) -> str:
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    """Build if needed and load the library with its signatures set."""
-    with _LOCK:
+    """Build if needed and load the library with its signatures set (its
+    seconds: ``build.library_s`` in ``trace``)."""
+    with trace.timed("build.library_s"), _LOCK:
         lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -32,14 +32,11 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .probe import DESC_WORDS, Packed
 from .sieve import SMEM_LIMIT
 # K3 keeps K2's residency rule: the same tables, the same prefix
 from .walk import resident_words, steps_of, table_ends, walk_plain  # noqa: F401
-
-#: K3 launches since the count was last reset (only where the kernel runs)
-LAUNCHES = 0
 
 DENSE_ESCAPE_DIV = 4        # as pfac_tpu.backends.pallas_sieve
 CHUNK = 8192                # positions per tile; block % CHUNK == 0
@@ -98,7 +95,6 @@ def block_walk(data: torch.Tensor, n: int, counts: torch.Tensor,
         raise ValueError(f"no block walk for device {data.device}")
     if block % CHUNK:
         raise ValueError(f"the block must be a multiple of {CHUNK} positions")
-    global LAUNCHES
     nsteps, look, cap, resident = launch_plan(tabs, match.shape[0] // CHUNK,
                                               data.device)
     rc = _build.load().pfac_block_walk(
@@ -107,7 +103,7 @@ def block_walk(data: torch.Tensor, n: int, counts: torch.Tensor,
         tabs.arena.data_ptr(), tabs.arena.numel(), resident,
         tabs.desc.data_ptr(), nsteps, look, cap, match.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream)
-    LAUNCHES += 1
+    trace.count("launch.block_walk_kernel")
     _build.check(rc, "block_walk_kernel")
     return None
 

@@ -16,12 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .sieve import unpack_bits
 
-#: launches of each compaction kernel since the counts were last reset
-#: (only where the kernels run)
-LAUNCHES = {"compact_scan_kernel": 0, "compact_kernel": 0}
+#: the compaction's kernels (counted as ``launch.<kernel>`` in ``trace``,
+#: only where the kernels run)
+KERNELS = ("compact_scan_kernel", "compact_kernel")
 
 
 def _check(bits: torch.Tensor, counts: torch.Tensor) -> int:
@@ -68,15 +68,15 @@ def compact(bits: torch.Tensor, counts: torch.Tensor,
     lib = _build.load()
     offsets = torch.empty(nblocks + 1, dtype=torch.int32, device=dev)
     rc = lib.pfac_compact_scan(dev.index or 0, counts.data_ptr(), nblocks,
-                               thresh, offsets.data_ptr(), stream)
-    LAUNCHES["compact_scan_kernel"] += 1
+                               thresh, offsets.data_ptr(), None, stream)
+    trace.count("launch.compact_scan_kernel")
     _build.check(rc, "compact_scan_kernel")
     pos = torch.empty(capacity(nblocks, block, thresh), dtype=torch.int32,
                       device=dev)
     rc = lib.pfac_compact(dev.index or 0, bits.data_ptr(), counts.data_ptr(),
                           offsets.data_ptr(), nblocks, block, thresh,
                           pos.data_ptr(), stream)
-    LAUNCHES["compact_kernel"] += 1
+    trace.count("launch.compact_kernel")
     _build.check(rc, "compact_kernel")
     return pos, offsets[nblocks:]
 

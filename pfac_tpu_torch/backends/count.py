@@ -13,12 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
-
-#: count_kernel launches since the count was last reset (only where the
-#: kernel runs)
-LAUNCHES = 0
-
+from .. import _build, trace
 
 def bound_bytes(words: int) -> int:
     """Bytes the count must move: the result read once (4 B a position);
@@ -38,13 +33,12 @@ def count_nonzero(result: torch.Tensor) -> torch.Tensor:
         return count_nonzero_plain(result)
     if dev.type != "cuda":
         raise ValueError(f"no count for device {dev}")
-    global LAUNCHES
     n = result.shape[0]
     out = torch.empty((), dtype=torch.int64, device=dev)
     rc = _build.load().pfac_count(
         dev.index or 0, result.data_ptr(), n, max(n, 1), 1, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES += 1
+    trace.count("launch.count_kernel")
     _build.check(rc, "count_kernel")
     return out
 

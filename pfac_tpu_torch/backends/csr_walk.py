@@ -17,14 +17,10 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .csr_tables import _NEXT_MASK, ENTRY_MUL, W_ENTRIES
 from .probe import Packed, mul32, unsigned
 from .walk import _check
-
-#: CSR walk launches since the count was last reset (only where it runs)
-LAUNCHES = 0
-
 
 def csr_walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
              tabs: Packed, count: torch.Tensor | None = None) -> None:
@@ -38,13 +34,12 @@ def csr_walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
         return csr_walk_plain(data, n, pos, out, tabs, count)
     if data.device.type != "cuda":
         raise ValueError(f"no CSR walker for device {data.device}")
-    global LAUNCHES
     rc = _build.load().pfac_csr_walk(
         data.device.index or 0, data.data_ptr(), n, pos.data_ptr(),
         None if count is None else count.data_ptr(), pos.shape[0],
         tabs.arena.data_ptr(), tabs.desc.data_ptr(), len(tabs.rows) - 1,
         out.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
-    LAUNCHES += 1
+    trace.count("launch.csr_walk_kernel")
     _build.check(rc, "csr_walk_kernel")
     return None
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 KERNELS = {"dense": "lockstep_dense_kernel", "hash": "lockstep_hash_kernel"}
 _TABLES = {"dense": 3, "hash": 6}
@@ -42,10 +42,6 @@ FORM_HEAD = 2 * 256 * ROW_WORDS   # the form's (bits, rank) words
 #: kernel's 78,864 bytes of warp tiles, queues and carried walks, two CTAs
 #: still fit an H100 SM
 PAIR_SMEM_BYTES = 32 << 10
-
-#: launches of each kernel since the counts were last reset (only where the
-#: kernels run)
-LAUNCHES = dict.fromkeys(KERNELS.values(), 0)
 
 
 def bound_bytes(npad: int, n: int) -> int:
@@ -185,7 +181,7 @@ def lockstep_walk(data_u8: torch.Tensor, n: int, out: torch.Tensor,
         0 if pairs is None else pairs.shape[0], int(perf_mode == "hash"),
         *ptrs, num_final, max_len, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES[KERNELS[perf_mode]] += 1
+    trace.count(f"launch.{KERNELS[perf_mode]}")
     _build.check(rc, KERNELS[perf_mode])
     return out
 

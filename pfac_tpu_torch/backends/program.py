@@ -24,8 +24,11 @@ handed to C in a :class:`Spec`; C computes the grids with the kernels' own
 launch code. A call then costs two ``torch.empty`` (the result and one
 scratch block, carved by the geometry's offsets; from torch's allocator,
 so its stream semantics hold and no buffer is shared between calls), one ``ctypes`` call
-and an increment of each kernel's launch count (``LAUNCHES`` of each
-kernel's module, as its wrapper counts it).
+and one increment of the program's call count (``trace``: its kernels'
+launches and the positions it scans are that count times its fixed lists,
+expanded where the counters are read). Its ``compact_scan_kernel`` adds the
+call's survivors and escaped blocks to the device's counter words
+(``trace.device_buffer``), on the card.
 
 Only CUDA tensors reach a program: ``pipeline.run`` and the per-kernel
 wrappers stay the CPU path and the program's reference on the card. A
@@ -40,16 +43,12 @@ import weakref
 
 import torch
 
-from .. import _build
-from . import block_walk, compact, count as count_mod, csr_walk, pipeline
+from .. import _build, trace
+from . import block_walk, compact, pipeline
 from . import reduce as reduce_mod
 from . import sieve, walk
 from .probe import Packed
 from .sieve_tables import LANES
-
-#: program launches (one a call, one a device for a sharded call) since the
-#: count was last reset
-LAUNCHES = 0
 
 ALIGN = 256         # bytes: each part of the scratch starts on its own lines
 TIERS = ("sieve", "walk", "csr")   # the sieve alone, walk tables, CSR
@@ -68,7 +67,7 @@ class Spec(ctypes.Structure):
             "match_at", "count_at")] + [
         (name, ctypes.c_void_p) for name in (
             "sieve_arena", "sieve_desc", "walk_arena", "walk_desc",
-            "csr_arena", "csr_desc")]
+            "csr_arena", "csr_desc", "counters")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,8 +173,8 @@ def _ptr(t: Packed | None, name: str) -> int | None:
 
 class Program:
     """One engine's program at one geometry on one CUDA device: the C
-    program (built at the first call, with that call's pointers) and the
-    launch counts a call adds."""
+    program (built at the first call, with that call's pointers, and the
+    device's counter words) and what a call adds to the counters."""
 
     def __init__(self, geo: Geometry, sieve_tabs: Packed,
                  walk_tabs: Packed | None, csr_tabs: Packed | None,
@@ -198,29 +197,26 @@ class Program:
         self.spec = Spec(**fields)
         # the tables stay alive as long as the program that points at them
         self._tables = (sieve_tabs, walk_tabs, csr_tabs)
+        #: each kernel's launches a call: its tier's once a shard, the
+        #: reduce's and the count once
         k = geo.shards
-        self._counts = [(sieve.LAUNCHES, f"sieve_{geo.placement}_kernel", k)]
-        self._modules = []
+        self.kernels = {f"sieve_{geo.placement}_kernel": k}
         if geo.tier != "sieve":
-            self._counts += [(compact.LAUNCHES, kn, k)
-                             for kn in compact.LAUNCHES]
+            self.kernels.update(dict.fromkeys(compact.KERNELS, k))
         if geo.tier == "walk":
-            self._modules += [(walk, k), (block_walk, k)]
+            self.kernels.update(walk_kernel=k, block_walk_kernel=k)
         elif geo.tier == "csr":
-            self._modules.append((csr_walk, k))
+            self.kernels["csr_walk_kernel"] = k
         if geo.reduce:
-            self._counts += [(reduce_mod.LAUNCHES, kn, 1)
-                             for kn in reduce_mod.LAUNCHES]
+            self.kernels.update(dict.fromkeys(reduce_mod.KERNELS, 1))
         if geo.count:
-            self._modules.append((count_mod, 1))
+            self.kernels["count_kernel"] = 1
+        self._tally = trace.tally({
+            "launch.program": 1, "positions": k * geo.npad,
+            **{f"launch.{kn}": c for kn, c in self.kernels.items()}})
 
     def _counted(self, rc: int) -> None:
-        global LAUNCHES
-        LAUNCHES += 1
-        for counts, key, k in self._counts:
-            counts[key] += k
-        for mod, k in self._modules:
-            mod.LAUNCHES += k
+        self._tally.calls += 1
         _build.check(rc, "program")
 
     def _create(self, data, n, res, scratch, status, nstatus, epoch,
@@ -230,13 +226,17 @@ class Program:
                 self._build(data, n, res, scratch, status, nstatus, epoch,
                             count_len)
 
+    @trace.spanned("pfac.program.build")
     def _build(self, data, n, res, scratch, status, nstatus, epoch,
                count_len) -> None:
         lib = _build.load()
-        rc = lib.pfac_program_create(
-            ctypes.byref(self.spec), data, n, res, scratch, status, nstatus,
-            epoch, count_len, ctypes.byref(self.handle))
+        with trace.timed("build.program_s"):
+            self.spec.counters = trace.device_buffer(self.device).data_ptr()
+            rc = lib.pfac_program_create(
+                ctypes.byref(self.spec), data, n, res, scratch, status,
+                nstatus, epoch, count_len, ctypes.byref(self.handle))
         _build.check(rc, "program build")
+        trace.count("build.programs")
         self._launch = lib.pfac_program_launch
         # destroyed with the program; at exit the process frees it
         weakref.finalize(self, lib.pfac_program_destroy,
@@ -298,13 +298,18 @@ class Program:
 
 def _program(engine, key: tuple, **kw) -> Program:
     prog = engine._programs.get(key)
-    if prog is None:
+    return prog if prog is not None else _new_program(engine, key, **kw)
+
+
+@trace.spanned("pfac.program.build")
+def _new_program(engine, key: tuple, **kw) -> Program:
+    _build.load()            # the library's own time is build.library_s
+    with trace.timed("build.program_s"):
         dev = engine.device
         geo = geometry(engine._sieve, engine._walk, engine._csr,
                        block=engine.tile_rows * LANES, device=dev, **kw)
-        prog = engine._programs.setdefault(key, Program(
+        return engine._programs.setdefault(key, Program(
             geo, engine._sieve, engine._walk, engine._csr, dev))
-    return prog
 
 
 def _check(data: torch.Tensor, n: int, device: torch.device) -> None:
@@ -317,6 +322,7 @@ def _check(data: torch.Tensor, n: int, device: torch.device) -> None:
         raise ValueError(f"data is on {data.device}, the program on {device}")
 
 
+@trace.spanned("pfac.program")
 def match(engine, data: torch.Tensor, n: int, npad: int,
           reduce: bool = False):
     """`engine` (a SieveMatcher on a CUDA device) on the first n bytes of
@@ -328,6 +334,7 @@ def match(engine, data: torch.Tensor, n: int, npad: int,
                     reduce=reduce).match(data, n)
 
 
+@trace.spanned("pfac.program")
 def match_shards(engine, shards: list[torch.Tensor], ns: list[int],
                  npad: int, shard_len: int, count: bool):
     """The shards on `engine`'s device, each run as ``pipeline.run(shard,

@@ -26,11 +26,11 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
-#: launches of each reduce kernel since the counts were last reset (only
+#: the reduce's kernels (counted as ``launch.<kernel>`` in ``trace``, only
 #: where the kernels run)
-LAUNCHES = {"reduce_kernel": 0, "reduce_tail_kernel": 0}
+KERNELS = ("reduce_kernel", "reduce_tail_kernel")
 TILE = 8192        # positions a CTA of reduce_kernel takes (csrc/reduce.cu)
 _EPOCHS = 1 << 32  # the status words' epoch is 32 bits, 0 never used
 
@@ -97,8 +97,8 @@ def reduce_from_dense(result: torch.Tensor):
         dev.index or 0, result.data_ptr(), npad, ids.data_ptr(),
         pos.data_ptr(), count.data_ptr(), status.data_ptr(), status.numel(),
         epoch, stream)
-    LAUNCHES["reduce_kernel"] += 1
-    LAUNCHES["reduce_tail_kernel"] += 1
+    trace.count("launch.reduce_kernel")
+    trace.count("launch.reduce_tail_kernel")
     _build.check(rc, "reduce_kernel")
     return ids, pos, count
 

@@ -24,15 +24,14 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .probe import MIX_RESID, Packed, mul32, probe, slot, unsigned
 from .sieve_tables import LANES
 
-#: K1 launches since the counts were last reset, by placement kernel (only
-#: where a kernel runs)
-LAUNCHES = {"sieve_smem_kernel": 0, "sieve_cluster_kernel": 0,
-            "sieve_global_kernel": 0}
 PLACEMENTS = ("smem", "cluster", "global")
+#: K1's kernels, one a placement (counted as ``launch.<kernel>`` in
+#: ``trace``, only where a kernel runs)
+KERNELS = tuple(f"sieve_{p}_kernel" for p in PLACEMENTS)
 
 _PLAIN_CHUNK = 1 << 22      # positions per pass of the plain version
 BLOCK = 512 * LANES         # positions per survivor count: the 64K bucket
@@ -113,7 +112,7 @@ def sieve(data: torch.Tensor, n: int, npad: int, tabs: Packed,
         PLACEMENTS.index(placement), match.data_ptr(), bits.data_ptr(),
         counts.data_ptr(), block, torch.cuda.current_stream(dev).cuda_stream)
     kernel = f"sieve_{placement}_kernel"
-    LAUNCHES[kernel] += 1
+    trace.count(f"launch.{kernel}")
     _build.check(rc, kernel)
     return match, bits, counts[:-1]
 

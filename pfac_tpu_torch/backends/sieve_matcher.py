@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
 from . import pipeline, program
@@ -37,17 +38,18 @@ def build_host_tables(automaton: Automaton) -> tuple[
     tables. Raises PfacError where the sieve tables pass the reference's
     8 MB budget; ``select.try_build`` falls back to the lockstep walker on
     that, or on any other error raised here, as the reference does."""
-    tables = SieveTables.build(automaton)
-    if tables.vmem_bytes > _VMEM_TABLE_BUDGET:
-        raise PfacError(
-            PfacStatus.INVALID_PARAMETER,
-            f"sieve tables of {tables.vmem_bytes} bytes exceed the sieve "
-            f"engine's budget of {_VMEM_TABLE_BUDGET} bytes",
-        )
-    walk_tables = build_walk_tables_gated(automaton, tables)
-    csr_tables = None
-    if walk_tables is None and tables.alive is not None:
-        csr_tables = build_csr_tables(automaton)
+    with trace.timed("build.tables_s"):
+        tables = SieveTables.build(automaton)
+        if tables.vmem_bytes > _VMEM_TABLE_BUDGET:
+            raise PfacError(
+                PfacStatus.INVALID_PARAMETER,
+                f"sieve tables of {tables.vmem_bytes} bytes exceed the sieve "
+                f"engine's budget of {_VMEM_TABLE_BUDGET} bytes",
+            )
+        walk_tables = build_walk_tables_gated(automaton, tables)
+        csr_tables = None
+        if walk_tables is None and tables.alive is not None:
+            csr_tables = build_csr_tables(automaton)
     return tables, walk_tables, csr_tables
 
 
@@ -71,15 +73,17 @@ class SieveMatcher:
         if host is None:
             host = build_host_tables(automaton)
         self.tables, self.walk_tables, self.csr_tables = host
-        self._sieve = self.tables.to_device(self.device)
-        self._walk = (None if self.walk_tables is None
-                      else self.walk_tables.to_device(self.device))
-        self._csr = (None if self.csr_tables is None
-                     else self.csr_tables.to_device(self.device))
+        with trace.timed("build.upload_s"):
+            self._sieve = self.tables.to_device(self.device)
+            self._walk = (None if self.walk_tables is None
+                          else self.walk_tables.to_device(self.device))
+            self._csr = (None if self.csr_tables is None
+                         else self.csr_tables.to_device(self.device))
         #: the CUDA programs (program.py), by (device index, npad, ...), as
         #: the reference keeps a jitted pipeline for each (npad, cap, aligned)
         self._programs: dict[tuple, program.Program] = {}
 
+    @trace.spanned("pfac.sieve_engine")
     def _run(self, data: torch.Tensor, n: int,
              npad: int | None = None, reduce: bool = False):
         """-> int32[npad] (default ``npad_for(n)``), 0 at and past n; with

@@ -22,13 +22,10 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from .probe import DESC_WORDS, Packed, probe, unsigned
 from .sieve import SMEM_LIMIT
 from .walk_tables import DEAD
-
-#: K2 launches since the count was last reset (only where the kernel runs)
-LAUNCHES = 0
 
 _HEADER = 16                # the tables' mbarrier, as csrc/walk.cu
 
@@ -123,7 +120,6 @@ def walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
         return walk_plain(data, n, pos, out, tabs, count)
     if data.device.type != "cuda":
         raise ValueError(f"no walker for device {data.device}")
-    global LAUNCHES
     nsteps, resident = launch_plan(tabs, data.device)
     rc = _build.load().pfac_walk(
         data.device.index or 0, data.data_ptr(), n, pos.data_ptr(),
@@ -131,7 +127,7 @@ def walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
         tabs.arena.data_ptr(), tabs.arena.numel(), resident,
         tabs.desc.data_ptr(), nsteps, out.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream)
-    LAUNCHES += 1
+    trace.count("launch.walk_kernel")
     _build.check(rc, "walk_kernel")
     return None
 

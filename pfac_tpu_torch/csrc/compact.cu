@@ -11,7 +11,10 @@
 //   the blocks' counts with dense blocks as 0, offsets[nblocks] = total.
 //   The total stays on the device: the walkers read it there, and the
 //   positions go into a buffer sized without it (a block listed has fewer
-//   than thresh survivors), so the host never waits for the count;
+//   than thresh survivors), so the host never waits for the count. Given
+//   a program's counter words (backends/program.py; null from the
+//   per-kernel entry point), one thread adds the total to counters[0] and
+//   the number of dense blocks to counters[1], an atomic each;
 // * compact_kernel (one CTA per block): a block that is empty or dense
 //   returns at once; otherwise each warp takes a run of block / 256
 //   consecutive bitmap words and counts them, the CTA adds up the warp
@@ -54,18 +57,21 @@ __device__ __forceinline__ int32_t warp_scan(int32_t x, int lane) {
 
 __global__ void __launch_bounds__(kScanThreads)
 compact_scan_kernel(const int32_t* __restrict__ counts, int32_t nblocks,
-                    int32_t thresh, int32_t* __restrict__ offsets) {
+                    int32_t thresh, int32_t* __restrict__ offsets,
+                    unsigned long long* __restrict__ counters) {
   __shared__ int32_t warp_sum[kScanThreads / 32];
   __shared__ int32_t carry;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) carry = 0;
+  int32_t dense = 0;                         // the same in every thread
   for (int32_t base = 0; base < nblocks; base += kScanThreads) {
     const int32_t i = base + threadIdx.x;
     int32_t c = i < nblocks ? counts[i] : 0;
-    if (c >= thresh) c = 0;                  // K3 walks this block whole
+    const bool escaped = i < nblocks && c >= thresh;
+    if (escaped) c = 0;                      // K3 walks this block whole
     const int32_t x = warp_scan(c, lane);
     if (lane == 31) warp_sum[warp] = x;
-    __syncthreads();                         // also publishes carry
+    dense += __syncthreads_count(escaped);   // also publishes carry
     if (warp == 0) warp_sum[lane] = warp_scan(warp_sum[lane], lane);
     __syncthreads();
     const int32_t excl = carry + (warp ? warp_sum[warp - 1] : 0) + x - c;
@@ -74,7 +80,13 @@ compact_scan_kernel(const int32_t* __restrict__ counts, int32_t nblocks,
     if (threadIdx.x == kScanThreads - 1) carry = excl + c;
   }
   __syncthreads();
-  if (threadIdx.x == 0) offsets[nblocks] = carry;
+  if (threadIdx.x == 0) {
+    offsets[nblocks] = carry;
+    if (counters != nullptr) {
+      atomicAdd(counters, static_cast<unsigned long long>(carry));
+      atomicAdd(counters + 1, static_cast<unsigned long long>(dense));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -140,15 +152,17 @@ compact_kernel(const uint32_t* __restrict__ bits,
 
 }  // namespace
 
-// counts: int32[nblocks]; offsets: int32[nblocks + 1].
+// counts: int32[nblocks]; offsets: int32[nblocks + 1]; counters: int64[2]
+// (survivors, dense blocks) added to, or null.
 cudaError_t pfac::compact_scan_launch(const void* counts, int32_t nblocks,
                                       int32_t thresh, void* offsets,
-                                      Launch* l) {
+                                      void* counters, Launch* l) {
   *l = Launch{};
   if (nblocks < 0) return cudaErrorInvalidValue;
   l->set(compact_scan_kernel, 1, kScanThreads, 0,
          static_cast<const int32_t*>(counts), nblocks, thresh,
-         static_cast<int32_t*>(offsets));
+         static_cast<int32_t*>(offsets),
+         static_cast<unsigned long long*>(counters));
   return cudaSuccess;
 }
 
@@ -175,11 +189,13 @@ cudaError_t pfac::compact_launch(const void* bits, const void* counts,
 // cudaError_t.
 extern "C" int pfac_compact_scan(int device, const void* counts,
                                  int32_t nblocks, int32_t thresh,
-                                 void* offsets, void* stream) {
+                                 void* offsets, void* counters,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   pfac::Launch l;
-  err = pfac::compact_scan_launch(counts, nblocks, thresh, offsets, &l);
+  err = pfac::compact_scan_launch(counts, nblocks, thresh, offsets, counters,
+                                  &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -97,7 +97,8 @@ cudaError_t sieve_launch(int device, const void* data, int32_t n, int32_t npad,
                          void* bits, void* counts, int32_t block, Launch* l);
 // compact.cu
 cudaError_t compact_scan_launch(const void* counts, int32_t nblocks,
-                                int32_t thresh, void* offsets, Launch* l);
+                                int32_t thresh, void* offsets, void* counters,
+                                Launch* l);
 cudaError_t compact_launch(const void* bits, const void* counts,
                            const void* offsets, int32_t nblocks, int32_t block,
                            int32_t thresh, void* pos, Launch* l);

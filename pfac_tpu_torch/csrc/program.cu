@@ -70,6 +70,7 @@ struct Spec {
   const void* walk_desc;
   const void* csr_arena;
   const void* csr_desc;
+  void* counters;     // int64[2]: survivors, dense blocks (compact_scan)
 };
 
 // What changes from call to call.
@@ -142,7 +143,7 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
     }
     if (sp.tier != kSieveOnly) {
       err = pfac::compact_scan_launch(counts, sp.nblocks, sp.thresh, offsets,
-                                      kernel());
+                                      sp.counters, kernel());
       if (err != cudaSuccess) return err;
       err = pfac::compact_launch(bits, counts, offsets, sp.nblocks, sp.block,
                                  sp.thresh, pos, kernel());

@@ -32,14 +32,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..backends.probe import U32, mul32
 
-#: launches of each kernel since the counts were last reset (only where the
-#: kernel runs)
-LAUNCHES = {"word_gather_kernel": 0, "word_gather_cluster_kernel": 0,
-            "tile_gather_kernel": 0, "tile_gather_direct_kernel": 0,
-            "chain_gather_kernel": 0, "align_kernel": 0}
+#: the micro-benchmarks' kernels (counted as ``launch.<kernel>`` in
+#: ``trace``, only where a kernel runs)
+KERNELS = ("word_gather_kernel", "word_gather_cluster_kernel",
+           "tile_gather_kernel", "tile_gather_direct_kernel",
+           "chain_gather_kernel", "align_kernel")
 PLACEMENTS = ("smem", "cluster", "ldg", "cg", "prefix")   # csrc's numbers
 CHAIN_PLACEMENTS = ("smem", "ldg", "cg")   # G3's
 TILE_PATHS = ("direct", "staged")        # G2
@@ -128,7 +128,7 @@ def _launch(kernel: str, entry: str, dev: torch.device, *args) -> None:
     if fn is None:
         fn = _ENTRY[entry] = getattr(_build.load(), entry)
     rc = fn(dev.index or 0, *args, torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES[kernel] += 1
+    trace.count(f"launch.{kernel}")
     if rc:
         _build.check(rc, kernel)
 

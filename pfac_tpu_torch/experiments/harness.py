@@ -26,7 +26,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
 @dataclasses.dataclass
 class Case:
     name: str
-    kernel: str                  # a gathers.LAUNCHES key
+    kernel: str                  # one of gathers.KERNELS
     lookups: int                 # table reads per call
     run: Callable[[], torch.Tensor]
     plain: Callable[[], torch.Tensor]

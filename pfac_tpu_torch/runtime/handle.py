@@ -21,6 +21,11 @@ chunking past ``_CHUNK_LIMIT``, ``stream()``), and so is engine selection
 Only ``Platform.DEVICE`` needs the device: ``Matcher(..., platform="cpu")``
 runs on a host with no GPU whatever ``device`` says.
 
+``match_device`` and ``match_reduce_device`` are the request's outermost
+spans (``pfac.match_device``, ``pfac.match_reduce_device``) while
+``torch.profiler`` records; :meth:`Matcher.counters` reads the port's
+counters (``trace``).
+
 Mode mapping from the CUDA PFAC library: ``PFAC_setPlatform(GPU/CPU/
 CPU_OMP)`` -> ``Platform``; ``PFAC_setPerfMode(TIME/SPACE_DRIVEN)`` ->
 ``PerfMode.DENSE/HASH``; ``PFAC_setTextureMode(AUTO/ON/OFF)`` ->
@@ -30,11 +35,13 @@ read from device memory).
 from __future__ import annotations
 
 import enum
+from collections import Counter
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.automaton import Automaton
 from ..status import PfacError, PfacStatus
 
@@ -124,10 +131,12 @@ class Matcher:
             )
         if automaton is not None:
             self.automaton = automaton
-        elif pattern_file is not None:
-            self.automaton = Automaton.from_pattern_file(pattern_file)
         else:
-            self.automaton = Automaton.from_patterns(patterns)
+            with trace.timed("build.automaton_s"):
+                self.automaton = (
+                    Automaton.from_pattern_file(pattern_file)
+                    if pattern_file is not None
+                    else Automaton.from_patterns(patterns))
         self.perf_mode = _coerce(PerfMode, perf_mode)
         self.platform = _coerce(Platform, platform)
         self.placement = _coerce(PlacementMode, placement)
@@ -183,6 +192,7 @@ class Matcher:
         out[start: start + ids.shape[0]] = ids
         return out
 
+    @trace.spanned("pfac.match_device")
     def match_device(self, data_u8):
         """`PFAC_matchFromDevice` analog: uint8 tensor on the device in,
         int32 tensor out, padded with zeros: to the 64K-position bucket on
@@ -200,6 +210,7 @@ class Matcher:
                 golden.match(self.automaton, data, self._mode()))
         return self._engine().match_reduce(data)
 
+    @trace.spanned("pfac.match_reduce_device")
     def match_reduce_device(self, data_u8):
         return self._engine().match_reduce_device(data_u8)
 
@@ -218,6 +229,16 @@ class Matcher:
         return StreamMatcher(self, min_batch=min_batch)
 
     # --------------------------------------------------------- introspect
+    def counters(self) -> Counter:
+        """The port's counters (``trace.counters``: launches, positions
+        scanned, programs built, set-up seconds, span totals while profiled)
+        and the device counters (``survivors``, ``blocks_escaped``), read
+        now. They are the process's: every handle adds to them. A key never
+        counted reads 0. This read, and no call, waits for the card."""
+        out = trace.counters()
+        out.update(trace.device_counters())
+        return out
+
     def dump_transition_table(self, fp=None) -> str:
         return self.automaton.dump_transition_table(fp)
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import pfac_tpu_torch as pt
+from pfac_tpu_torch import trace
 from pfac_tpu_torch.backends import (block_walk, compact, count, csr_walk,
                                      golden, pipeline, program, reduce, sieve,
                                      sieve_matcher, walk)
@@ -88,13 +89,14 @@ def test_launch_counters(dev):
     pats, rng = _ruleset(7)
     m = pt.Matcher(pats, device=dev)
     data = torch.from_numpy(_corpus(rng, pats, 1 << 20)).to(dev)
-    _zero(sieve.LAUNCHES, compact.LAUNCHES)
-    walk.LAUNCHES = block_walk.LAUNCHES = 0
+    trace.reset()
     m.match_device(data)
-    assert sum(sieve.LAUNCHES.values()) == 1 and walk.LAUNCHES == 1
-    assert sieve.LAUNCHES["sieve_smem_kernel"] == 1
-    assert compact.LAUNCHES == {"compact_scan_kernel": 1, "compact_kernel": 1}
-    assert block_walk.LAUNCHES == 1      # armed: one launch, no dense block
+    assert sum(trace.launches(*sieve.KERNELS).values()) == 1
+    assert _n("walk_kernel") == 1
+    assert _n("sieve_smem_kernel") == 1
+    assert trace.launches(*compact.KERNELS) == {"compact_scan_kernel": 1,
+                                           "compact_kernel": 1}
+    assert _n("block_walk_kernel") == 1  # armed: one launch, no dense block
 
 
 def test_unaligned_view(dev):
@@ -199,10 +201,10 @@ def test_block_walk_no_dense_block(dev):
     match, _, counts = sieve.sieve(data, n, npad_for(n), eng._sieve)
     assert block_walk.escaped_blocks(counts, npad_for(n)) == 0
     before = match.clone()
-    block_walk.LAUNCHES = 0
+    trace.reset()
     block_walk.block_walk(data, n, counts, match, eng._walk)
     torch.cuda.synchronize()
-    assert block_walk.LAUNCHES == 1 and torch.equal(match, before)
+    assert _n("block_walk_kernel") == 1 and torch.equal(match, before)
 
 
 @pytest.mark.parametrize("offset", [1, 3, 4, 13, 16])
@@ -261,11 +263,11 @@ def test_csr_tier_on_card(dev, n):
     csr_walk.csr_walk_plain(data, n, pos, out_p, eng._csr, count)
     torch.cuda.synchronize()
     assert torch.equal(out_k, out_p)
-    _zero(sieve.LAUNCHES)
-    csr_walk.LAUNCHES = block_walk.LAUNCHES = 0
+    trace.reset()
     res = m.match_device(data)
-    assert sum(sieve.LAUNCHES.values()) == 1 and block_walk.LAUNCHES == 0
-    assert csr_walk.LAUNCHES == 1          # whatever the survivor count
+    assert sum(trace.launches(*sieve.KERNELS).values()) == 1
+    assert _n("block_walk_kernel") == 0
+    assert _n("csr_walk_kernel") == 1      # whatever the survivor count
     assert torch.equal(res, pipeline.run(data, n, npad, eng._sieve, None,
                                          eng._csr, plain=True))
     assert res.cpu().numpy()[:n].tolist() == golden.match_edges_batch(
@@ -286,10 +288,8 @@ def test_forced_csr_tier_on_card(dev, monkeypatch):
     assert torch.equal(m.match_device(data), walk_res)
 
 
-def _zero(*counts: dict) -> None:
-    for c in counts:
-        for k in c:
-            c[k] = 0
+def _n(kernel: str) -> int:
+    return trace.counters()[f"launch.{kernel}"]
 
 
 @pytest.mark.parametrize("placement", sieve.PLACEMENTS)
@@ -301,9 +301,9 @@ def test_sieve_placements_match_plain(dev, placement, n):
         host = _corpus(rng, pats, max(n, 200))[:n]
         data = torch.from_numpy(host).to(dev)
         npad = npad_for(n)
-        _zero(sieve.LAUNCHES)
+        trace.reset()
         got = sieve.sieve(data, n, npad, tabs, placement=placement)
-        assert sieve.LAUNCHES[f"sieve_{placement}_kernel"] == 1
+        assert _n(f"sieve_{placement}_kernel") == 1
         want = sieve.sieve_plain(data, n, npad, tabs)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
@@ -336,10 +336,10 @@ def test_compact_kernel_matches_plain(dev, density, block):
     bits = sieve.pack_bits(flags)
     counts = flags.view(-1, block).sum(1, dtype=torch.int32)
     for thresh in (block // 4, block + 1, 1):
-        _zero(compact.LAUNCHES)
+        trace.reset()
         got, count = compact.compact(bits, counts, thresh)
-        assert compact.LAUNCHES == {"compact_scan_kernel": 1,
-                                    "compact_kernel": 1}
+        assert trace.launches(*compact.KERNELS) == {"compact_scan_kernel": 1,
+                                               "compact_kernel": 1}
         assert got.numel() == compact.capacity(counts.numel(), block, thresh)
         assert torch.equal(got[:int(count)],
                            compact.compact_plain(bits, counts, thresh))
@@ -373,14 +373,15 @@ def test_walkers_count_contract(dev, offset):
         run, plain = ((walk.walk, walk.walk_plain) if fn is walk
                       else (csr_walk.csr_walk, csr_walk.csr_walk_plain))
         tabs = eng._walk if fn is walk else eng._csr
+        kernel = "walk_kernel" if fn is walk else "csr_walk_kernel"
         for name, buf, cnt in _count_cases(dev, pos):
-            fn.LAUNCHES = 0
+            trace.reset()
             out_k, out_p = match.clone(), match.clone()
             run(data, n, buf, out_k, tabs, cnt)
             k = buf.numel() if cnt is None else int(cnt)
             plain(data, n, buf[:k].clone(), out_p, tabs)
             torch.cuda.synchronize()
-            assert fn.LAUNCHES == 1, name
+            assert _n(kernel) == 1, name
             assert torch.equal(out_k, out_p), name
             assert (k == 0) == torch.equal(out_k, match), name
 
@@ -490,11 +491,10 @@ def _words(dev, w: int, n: int, seed: int):
 def test_word_gather_on_card(dev, placement, w, n):
     # every placement and the default one; a ragged tail of 3 lookups
     table, idx = _words(dev, w, n, w + n)
-    for k in gathers.LAUNCHES:
-        gathers.LAUNCHES[k] = 0
+    trace.reset()
     got = gathers.word_gather(table, idx, placement)
-    assert gathers.LAUNCHES[gathers.word_kernel(w, placement, n)] == 1
-    assert sum(gathers.LAUNCHES.values()) == 1
+    assert _n(gathers.word_kernel(w, placement, n)) == 1
+    assert sum(trace.launches(*gathers.KERNELS).values()) == 1
     assert torch.equal(got, gathers.word_gather_plain(table, idx))
 
 
@@ -523,12 +523,11 @@ def test_word_gather_cluster_on_card(dev, placement, w):
     if placement is None:
         assert gathers.word_placement(w) == ("smem" if w <= gathers.SMEM_WORDS
                                              else "prefix")
-    for k in gathers.LAUNCHES:
-        gathers.LAUNCHES[k] = 0
+    trace.reset()
     got = gathers.word_gather(table, idx, placement)
     kernel = gathers.word_kernel(w, placement, idx.numel())
-    assert gathers.LAUNCHES[kernel] == 1
-    assert sum(gathers.LAUNCHES.values()) == 1
+    assert _n(kernel) == 1
+    assert sum(trace.launches(*gathers.KERNELS).values()) == 1
     assert torch.equal(got, gathers.word_gather_plain(table, idx))
     assert torch.equal(got, gathers.word_gather_cluster_plain(table, idx))
 
@@ -587,9 +586,9 @@ def test_tile_gather_on_card(dev, rows, cols, m, k, axis):
                          ("staged", "tile_gather_kernel")):
         kernel = kernel or ("tile_gather_direct_kernel" if rule == "direct"
                             else "tile_gather_kernel")
-        gathers.LAUNCHES[kernel] = 0
+        trace.reset()
         assert torch.equal(gathers.tile_gather(tile, idx, axis, path), want)
-        assert gathers.LAUNCHES[kernel] == 1
+        assert _n(kernel) == 1
 
 
 @pytest.mark.parametrize("groups,w_out,w_raw", [(1, 26, 64), (64, 26, 64),
@@ -614,14 +613,13 @@ def test_align_on_card(dev, groups, w_out, w_raw):
     lambda d: lanegather2_micro.cases(d, n_idx=1 << 16)],
     ids=["E1", "E2", "E3", "E4", "E5", "E6"])
 def test_micro_benchmark_cases_on_card(dev, make):
-    for k in gathers.LAUNCHES:
-        gathers.LAUNCHES[k] = 0
+    trace.reset()
     for item in make(dev):
         if isinstance(item, harness.Refusal):
             harness.refuse(item)
         else:
             assert harness.check(item) == 0
-    assert sum(gathers.LAUNCHES.values()) > 0
+    assert sum(trace.launches(*gathers.KERNELS).values()) > 0
 
 
 @pytest.mark.parametrize("mode", ["dense", "hash"])
@@ -658,7 +656,8 @@ def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len,
         tables, **kw)
     out = torch.full((npad,), -7, dtype=torch.int32, device=data.device)
     torch.cuda.synchronize()
-    before = dict(lockstep.LAUNCHES)
+    kernels = tuple(lockstep.KERNELS.values())
+    before = trace.launches(*kernels)
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = lockstep.lockstep_walk(data, n, out, tables, pairs=pairs,
@@ -666,8 +665,9 @@ def _lockstep_pair(data, n, npad, tables, mode, num_final, max_len,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert got is out
-    assert {k: c - before[k] for k, c in lockstep.LAUNCHES.items()} == {
-        k: int(k == lockstep.KERNELS[mode]) for k in lockstep.LAUNCHES}
+    after = trace.launches(*kernels)
+    assert {k: c - before[k] for k, c in after.items()} == {
+        k: int(k == lockstep.KERNELS[mode]) for k in kernels}
     return got, want
 
 
@@ -886,7 +886,8 @@ def test_every_walker_tier_launches_the_kernel(dev, monkeypatch):
         assert isinstance(eng, XlaMatcher), tier
         mt.match_device(data)
         torch.cuda.synchronize()
-        before = dict(lockstep.LAUNCHES)
+        kernels = tuple(lockstep.KERNELS.values())
+        before = trace.launches(*kernels)
         torch.cuda.set_sync_debug_mode("error")
         try:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -895,8 +896,9 @@ def test_every_walker_tier_launches_the_kernel(dev, monkeypatch):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         kernel = lockstep.KERNELS[eng.perf_mode]
-        assert {k: c - before[k] for k, c in lockstep.LAUNCHES.items()} == {
-            k: 2 * int(k == kernel) for k in lockstep.LAUNCHES}, tier
+        after = trace.launches(*kernels)
+        assert {k: c - before[k] for k, c in after.items()} == {
+            k: 2 * int(k == kernel) for k in kernels}, tier
         assert not any(e.key == "aten::nonzero"
                        for e in prof.key_averages()), tier
         assert torch.equal(got[:host.shape[0]], want[:host.shape[0]]), tier
@@ -921,10 +923,11 @@ def test_sharded_walker_through_the_kernel(dev, mode, k):
     n = host.shape[0]
     shards = sm._put(host, sm._shard_len(n))
     torch.cuda.synchronize()
-    before = dict(lockstep.LAUNCHES)
+    kernels = tuple(lockstep.KERNELS.values())
+    before = trace.launches(*kernels)
     res, cnt = sm.match_device(shards, n)
-    assert {c: x - before[c] for c, x in lockstep.LAUNCHES.items()} == {
-        c: k * int(c == lockstep.KERNELS[mode]) for c in lockstep.LAUNCHES}
+    assert {c: x - before[c] for c, x in trace.launches(*kernels).items()} == {
+        c: k * int(c == lockstep.KERNELS[mode]) for c in kernels}
     assert torch.equal(torch.cat(res)[:n], want[:n])
     assert int(cnt) == int((want > 0).sum())
     assert np.array_equal(sm.match(host), want[:n].cpu().numpy())
@@ -936,9 +939,9 @@ def test_graft_entry_walks_through_the_kernel(dev):
     from pfac_tpu_torch.backends import lockstep
     fn, args = graft_entry.entry(dev)
     cpu_fn, cpu_args = graft_entry.entry("cpu")
-    before = lockstep.LAUNCHES["lockstep_dense_kernel"]
+    before = _n("lockstep_dense_kernel")
     out = fn(*args)
-    assert lockstep.LAUNCHES["lockstep_dense_kernel"] == before + 1
+    assert _n("lockstep_dense_kernel") == before + 1
     assert torch.equal(out.cpu(), cpu_fn(*cpu_args))
 
 
@@ -957,7 +960,7 @@ def test_reduce_kernel_matches_plain(dev, npad, density, offset):
                    rng.integers(1, 1 << 20, size=npad + offset),
                    0).astype(np.int32)
     r = torch.from_numpy(res).to(dev)[offset:]
-    before = dict(reduce.LAUNCHES)
+    before = trace.launches(*reduce.KERNELS)
     want = reduce.reduce_plain(r)
     for _ in range(2):
         ids, pos, count = reduce.reduce_from_dense(r)
@@ -965,7 +968,8 @@ def test_reduce_kernel_matches_plain(dev, npad, density, offset):
         assert torch.equal(ids, want[0]) and torch.equal(pos, want[1])
         for status, _ in reduce._SCRATCH.values():
             assert int(status[0]) == 0
-    assert {k: n - before[k] for k, n in reduce.LAUNCHES.items()} == {
+    assert {k: n - before[k] for k, n in
+            trace.launches(*reduce.KERNELS).items()} == {
         "reduce_kernel": 2, "reduce_tail_kernel": 2}
 
 
@@ -983,18 +987,17 @@ def test_reduce_does_not_synchronize(dev):
     m.match_reduce_device(data)                   # warm
     xm = XlaMatcher(m.automaton, device=dev)
     torch.cuda.synchronize()
-    counts = (reduce.LAUNCHES["reduce_kernel"],
-              reduce.LAUNCHES["reduce_tail_kernel"],
-              compact.LAUNCHES["compact_kernel"])
+    counts = (_n("reduce_kernel"), _n("reduce_tail_kernel"),
+              _n("compact_kernel"))
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = m.match_reduce_device(data)
         xgot = reduce.reduce_from_dense(xm.match_device(data))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert (reduce.LAUNCHES["reduce_kernel"] - counts[0],
-            reduce.LAUNCHES["reduce_tail_kernel"] - counts[1],
-            compact.LAUNCHES["compact_kernel"] - counts[2]) == (2, 2, 1)
+    assert (_n("reduce_kernel") - counts[0],
+            _n("reduce_tail_kernel") - counts[1],
+            _n("compact_kernel") - counts[2]) == (2, 2, 1)
     g_ids, g_pos, g_n = golden.reduce_result(
         golden.match_edges_batch(m.automaton, host))
     for ids, pos, cnt in (got, xgot):
@@ -1122,9 +1125,9 @@ def test_program_equals_pipeline_over_lengths(dev):
     lengths = [5, 65536, 65537, 300_001, 3 << 20, 70_000, 5, 1]
     for n in lengths:
         data = torch.from_numpy(host[:n].copy()).to(dev)
-        before = program.LAUNCHES
+        before = _n("program")
         got = m.match_device(data)
-        assert program.LAUNCHES == before + 1
+        assert _n("program") == before + 1
         npad = npad_for(n)
         assert torch.equal(got, _wrappers(eng, data, n, npad)), n
         assert torch.equal(got, pipeline.run(data, n, npad, eng._sieve,
@@ -1180,9 +1183,9 @@ def test_program_csr_tier_every_placement(dev, placement, monkeypatch):
     for n in (300_001, 1 << 20, 300_001):
         host = _corpus(rng, pats, n)
         data = torch.from_numpy(host).to(dev)
-        _zero(sieve.LAUNCHES)
+        trace.reset()
         got = m.match_device(data)
-        assert sieve.LAUNCHES[f"sieve_{placement}_kernel"] == 1
+        assert _n(f"sieve_{placement}_kernel") == 1
         assert torch.equal(got, pipeline.run(data, n, npad_for(n),
                                              eng._sieve, None, eng._csr,
                                              plain=True))
@@ -1216,21 +1219,23 @@ def test_program_reduce_and_launches(dev, tier):
     m._engine()                 # the tables on the card before the check
     data = torch.from_numpy(_corpus(rng, pats, 1_500_000)).to(dev)
     torch.cuda.synchronize()
-    _zero(sieve.LAUNCHES, compact.LAUNCHES, reduce.LAUNCHES)
-    walk.LAUNCHES = block_walk.LAUNCHES = csr_walk.LAUNCHES = 0
-    before = program.LAUNCHES
+    trace.reset()
+    before = _n("program")
     torch.cuda.set_sync_debug_mode("error")
     try:
         ids, pos, cnt = m.match_reduce_device(data)
         res = m.match_device(data)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert program.LAUNCHES == before + 2
-    assert sum(sieve.LAUNCHES.values()) == 2
-    assert compact.LAUNCHES == {"compact_scan_kernel": 2, "compact_kernel": 2}
-    assert reduce.LAUNCHES == {"reduce_kernel": 1, "reduce_tail_kernel": 1}
-    assert walk.LAUNCHES == block_walk.LAUNCHES == 2 * (tier == "walk")
-    assert csr_walk.LAUNCHES == 2 * (tier == "csr")
+    assert _n("program") == before + 2
+    assert sum(trace.launches(*sieve.KERNELS).values()) == 2
+    assert trace.launches(*compact.KERNELS) == {"compact_scan_kernel": 2,
+                                           "compact_kernel": 2}
+    assert trace.launches(*reduce.KERNELS) == {"reduce_kernel": 1,
+                                          "reduce_tail_kernel": 1}
+    assert _n("walk_kernel") == _n("block_walk_kernel") == 2 * (
+        tier == "walk")
+    assert _n("csr_walk_kernel") == 2 * (tier == "csr")
     w_ids, w_pos, w_cnt = reduce.reduce_plain(res)
     assert cnt.dim() == 0 and cnt.dtype == torch.int32
     assert int(cnt) == int(w_cnt) > 0
@@ -1243,9 +1248,9 @@ def test_count_kernel_matches_plain(dev, n, offset):
     rng = np.random.default_rng(n + offset)
     r = torch.from_numpy(rng.integers(0, 3, size=n + offset,
                                       dtype=np.int32)).to(dev)[offset:]
-    before = count.LAUNCHES
+    before = _n("count_kernel")
     got = count.count_nonzero(r)
-    assert count.LAUNCHES == before + 1
+    assert _n("count_kernel") == before + 1
     assert got.dim() == 0 and got.dtype == torch.int64
     assert int(got) == int(count.count_nonzero_plain(r)) == int(
         torch.count_nonzero(r))
@@ -1262,8 +1267,116 @@ def test_sharded_program_count(dev, k):
     data = torch.from_numpy(host).to(dev)
     sm = _sharded(m, dev, k)
     shards = sm._put(data, sm._shard_len(n))
-    before, c_before = program.LAUNCHES, count.LAUNCHES
+    before, c_before = _n("program"), _n("count_kernel")
     res, cnt = sm.match_device(shards, n)
-    assert program.LAUNCHES == before + 1 and count.LAUNCHES == c_before + 1
+    assert _n("program") == before + 1 and _n("count_kernel") == c_before + 1
     assert int(cnt) == sum(int(count.count_nonzero_plain(r)) for r in res)
     assert torch.equal(torch.cat(res)[:n], m.match_device(data)[:n])
+
+
+def test_program_span_holds_the_graph_launch_of_its_kernels(dev, tmp_path):
+    # under torch.profiler: each call's pfac.program span holds one
+    # cudaGraphLaunch, whose correlation id that call's sieve_smem_kernel
+    # carries; nothing in a pfac.* span waits for the card or copies back
+    from torch.profiler import ProfilerActivity, profile
+    pats, rng = _ruleset(61)
+    m = pt.Matcher(pats, device=dev)
+    data = torch.from_numpy(_corpus(rng, pats, 1 << 20)).to(dev)
+    m.match_device(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            m.match_device(data)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X"]
+
+    def inside(e, lo, hi):
+        return lo <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= hi
+
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+             for e in ev if str(e["name"]).startswith("pfac.")
+             and e.get("cat") == "cpu_op"]
+    progs = [(a, b) for a, b, nm in spans if nm == "pfac.program"]
+    assert len(progs) == 3, spans
+    runtime = [e for e in ev if e.get("cat") == "cuda_runtime"]
+    k1 = [e for e in ev if e.get("cat") == "kernel"
+          and "sieve_smem_kernel" in e["name"]]
+    launches = []
+    for lo, hi in progs:
+        got = [e for e in runtime if e["name"] == "cudaGraphLaunch"
+               and inside(e, lo, hi)]
+        assert len(got) == 1, (lo, hi, [e["name"] for e in runtime
+                                        if inside(e, lo, hi)])
+        launches.append(got[0])
+    # each K1 the profiler recorded carries the correlation id of the
+    # graph launch in its own call's span, and starts after it
+    by_corr = {e["args"]["correlation"]: e for e in launches}
+    assert k1, "no sieve_smem_kernel recorded"
+    for e in k1:
+        c = e["args"].get("correlation")
+        assert c in by_corr, (c, sorted(by_corr))
+        assert float(e["ts"]) >= float(by_corr[c]["ts"])
+    for lo, hi, nm in spans:
+        waits = [e["name"] for e in runtime if inside(e, lo, hi) and (
+            "Synchronize" in e["name"] or "Memcpy" in e["name"])]
+        assert not waits, (nm, waits)
+
+
+def test_device_counters_equal_a_host_recount(dev):
+    # survivors and blocks escaped, added on the card by every program
+    # call, equal a recount from K1's counts over the same calls; one
+    # block of each dense corpus is all-match, so K3 takes it
+    pats, rng = _ruleset(63)
+    pats = pats + [b"\x07" * 4]
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    block = eng.tile_rows * 128
+    thresh = pipeline.threshold(eng._walk, block)
+    inputs = []
+    for n, dense in ((1 << 20, False), (300_001, True), (3 << 20, True)):
+        host = _corpus(rng, pats, n)
+        if dense:
+            host[block:2 * block] = 7
+        inputs.append(torch.from_numpy(host).to(dev))
+    want_s = want_b = 0
+    for d in inputs * 2:
+        n = d.shape[0]
+        _, _, counts = sieve.sieve(d, n, npad_for(n), eng._sieve)
+        want_s += int(counts[counts < thresh].sum())
+        want_b += int((counts >= thresh).sum())
+    assert want_b == 4 and want_s > 0
+    m.match_device(inputs[0])
+    trace.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for d in inputs * 2:
+            m.match_device(d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = m.counters()
+    assert (got["survivors"], got["blocks_escaped"]) == (want_s, want_b)
+    assert got["positions"] == 2 * sum(npad_for(d.shape[0]) for d in inputs)
+    assert got["launch.program"] == 6
+
+
+def test_a_new_length_builds_one_program(dev):
+    pats, rng = _ruleset(65)
+    m = pt.Matcher(pats, device=dev)
+    data = torch.from_numpy(_corpus(rng, pats, 3 << 20)).to(dev)
+
+    def built():
+        return trace.counters()["build.programs"]
+
+    for n, more in ((1 << 20, 1), (1 << 20, 0), (3 << 20, 1), (1 << 20, 0),
+                    ((1 << 20) - 5, 0)):            # the same npad
+        before = built()
+        m.match_device(data[:n])
+        assert built() == before + more, n
+    before = built()
+    m.match_reduce_device(data[:1 << 20])           # the reduce's own
+    assert built() == before + 1
+    assert trace.counters()["build.program_s"] > 0

@@ -21,6 +21,7 @@ import torch
 from jax.experimental import pallas
 
 import pfac_tpu_torch as pt
+from pfac_tpu_torch import trace
 from pfac_tpu_torch.backends import sieve_matcher
 from pfac_tpu_torch.experiments import (align_micro, axis0_gather_probe,
                                         dyngather_micro, gather_micro,
@@ -384,4 +385,4 @@ def test_every_case_runs_small_on_cpu():
             assert harness.check(item) == 0
         names.append(item.name)
     assert len(names) == len(set(names)) == 90
-    assert not any(gathers.LAUNCHES.values())      # no kernel on the CPU
+    assert not any(trace.launches(*gathers.KERNELS).values())  # no kernel

@@ -15,6 +15,7 @@ import pfac_tpu
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import xla as ref
 from pfac_tpu.dist import sharding as ref_sharding
+from pfac_tpu_torch import trace
 from pfac_tpu_torch.backends import lockstep, xla
 from pfac_tpu_torch.dist.sharding import ShardedMatcher, make_data_mesh
 from pfac_tpu_torch.experiments import rulesets
@@ -210,14 +211,15 @@ def test_lockstep_walk_on_the_cpu_is_the_plain_version():
     a = pt.Automaton.from_patterns(README)
     m = xla.XlaMatcher(a, tile=16, device="cpu")
     data = torch.frombuffer(bytearray(b"ABEDEDABG"), dtype=torch.uint8)
-    before = dict(lockstep.LAUNCHES)
+    before = trace.launches(*lockstep.KERNELS.values())
     kw = dict(perf_mode="dense", num_final=a.num_final_states,
               max_len=a.max_pattern_len)
     got = lockstep.lockstep_walk(data, 9, torch.empty(16, dtype=torch.int32),
                                  m._tables, **kw)
     want = lockstep.lockstep_walk_plain(
         data, 9, torch.full((16,), 99, dtype=torch.int32), m._tables, **kw)
-    assert torch.equal(got, want) and lockstep.LAUNCHES == before
+    assert torch.equal(got, want) and trace.launches(
+        *lockstep.KERNELS.values()) == before
     assert got[:9].tolist() == [1, 3, 4, 0, 4, 0, 2, 0, 0]
 
 

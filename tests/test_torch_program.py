@@ -177,10 +177,12 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     geo = program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(8 << 20),
                            BLOCK, card, shards=3, count=True)
     prog = program.Program(geo, eng._sieve, eng._walk, eng._csr, card)
-    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 6 * 8
+    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 7 * 8
     for field, _ in program.Spec._fields_:
         value = getattr(prog.spec, field)
-        if field == "placement":
+        if field == "counters":         # the device's words, at the build
+            assert value is None
+        elif field == "placement":
             assert value == sieve.PLACEMENTS.index(geo.placement)
         elif field == "tier":
             assert value == program.TIERS.index(geo.tier)
@@ -192,18 +194,14 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
             assert value == want, field
         elif field != "device":
             assert value == int(getattr(geo, field)), field
-    counted = {key: k for _, key, k in prog._counts}
-    counted.update({m.__name__.rsplit(".", 1)[1] + "_kernel": k
-                    for m, k in prog._modules})
-    assert counted == {**dict.fromkeys(tier_kernels, 3), "count_kernel": 1}
+    assert prog.kernels == {**dict.fromkeys(tier_kernels, 3),
+                            "count_kernel": 1}
     red = program.Program(
         program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(1 << 20),
                          BLOCK, card, reduce=True),
         eng._sieve, eng._walk, eng._csr, card)
-    assert {key: k for _, key, k in red._counts} == {
-        **{k: 1 for k in tier_kernels if k in sieve.LAUNCHES
-           or k in compact.LAUNCHES}, "reduce_kernel": 1,
-        "reduce_tail_kernel": 1}
+    assert red.kernels == {**dict.fromkeys(tier_kernels, 1),
+                           "reduce_kernel": 1, "reduce_tail_kernel": 1}
     assert not red.handle               # built at the first call, on a card
 
 
