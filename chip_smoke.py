@@ -35,7 +35,9 @@ Phases, each on lines of its own:
    torch.profiler: no ``aten::nonzero`` ran; K1 and both compaction kernels
    launched on every corpus, the tier's walker and K3 once a call; then the
    same calls under ``torch.cuda.set_sync_debug_mode("error")``, where any
-   host synchronisation raises; each result equal in full to the port's
+   host synchronisation raises; K1's short probes of each corpus (the
+   device counter ``short_probes``) equal to their host recount
+   (``sieve.short_probes_plain``); each result equal in full to the port's
    plain pipeline on the card, and to the port's numpy golden oracle
    (golden.match_edges_batch) on >= 16 MB of each corpus (>= 4 MB of the
    big-ruleset and F1 corpora); the escape taken on the all-match, mixed and
@@ -1735,6 +1737,17 @@ def main() -> int:
     print(f"sync check: match_device on {len(corpora)} corpora under "
           f"torch.cuda.set_sync_debug_mode('error'): no host "
           f"synchronisation, results equal")
+    # K1's short probes (m2 and m3 keys), counted on the card by a program
+    # call, against the gate rule recounted on the host
+    for nm, mt, d, *_ in corpora:
+        before = trace.device_counters()["short_probes"]
+        mt.match_device(d)
+        got = trace.device_counters()["short_probes"] - before
+        n = d.shape[0]
+        want = sieve.short_probes_plain(d, n, mt._engine()._sieve)
+        assert got == want, (nm, got, want)
+        print(f"short probes {nm}: {got}, {got / (2 * npad_for(n)):.2%} of "
+              f"2 x positions, equal to the host's recount")
     for (nm, mt, d, host, step, secs), res, per in zip(corpora, results,
                                                        per_corpus):
         e = mt._engine()

@@ -12,6 +12,13 @@ negative). It also counts the survivors of every ``block``-position block
 (``block_walk.py``) picks the blocks it walks whole and the compaction
 (``compact.py``) places each block's survivors.
 
+K1 probes the 2- and 3-byte tables only where a probe can hit: where some
+pattern of that length starts with the position's byte (the gates it sets
+in its staged copy of m1, :func:`gated_m1`) and fits before n, and reads a
+value only on a key hit. Given a program's counter words it adds the probes
+it issued (``trace``'s ``short_probes``; :func:`short_probes_plain`
+recounts them). The result does not depend on the gates.
+
 The wrapper places the tables by their size (:func:`placement_for`), one
 kernel for each placement: the whole arena in each CTA's shared memory
 (``smem``, the Snort-scale arena); every table but the alive residuals in
@@ -38,6 +45,9 @@ BLOCK = 512 * LANES         # positions per survivor count: the 64K bucket
 SMEM_LIMIT = 232_448 - 64   # a CTA's dynamic shared memory, less static
 _WARP_STAGE = 4 * 512       # bytes of match staging per warp
 _WARPS = {"smem": 8, "cluster": 16, "global": 8}   # as csrc/sieve.cu
+#: the gates K1 sets in its staged m1 words (csrc/sieve.cu): an m2 key, an
+#: m3 key starts with the word's byte; the IDs lie below them (< 2^30)
+GATE2, GATE3 = 1 << 30, 1 << 31
 
 
 def residual_offset(tabs: Packed) -> int:
@@ -164,3 +174,26 @@ def sieve_plain(data: torch.Tensor, n: int, npad: int, tabs: Packed,
         bits[c0 // 32:c1 // 32] = pack_bits(f)
     counts = unpack_bits(bits).view(-1, block).sum(1, dtype=torch.int32)
     return match, bits, counts
+
+
+def gated_m1(tabs: Packed) -> torch.Tensor:
+    """int64[256]: the m1 words as K1 stages them: byte c's length-1 ID,
+    with GATE2 set where some m2 key starts with c and GATE3 where some m3
+    key does. The keys are read from every slot (an empty slot holds a
+    member key)."""
+    a = unsigned(tabs.arena)
+    m1 = a[:256].clone()
+    for row, gate in zip(tabs.rows[:2], (GATE2, GATE3)):
+        if row[6]:
+            first = a[row[4]:row[4] + (1 << row[2])] & 0xFF
+            m1[first] |= gate
+    return m1
+
+
+def short_probes_plain(data: torch.Tensor, n: int, tabs: Packed) -> int:
+    """The m2 and m3 key probes K1 issues on the first n bytes of `data`:
+    position pos probes m2 where its byte opens GATE2 and n - pos > 1, m3
+    where it opens GATE3 and n - pos > 2."""
+    g = gated_m1(tabs).to(data.device)[data[:n].long()]
+    return (int(((g & GATE2) != 0)[:max(n - 1, 0)].sum())
+            + int(((g & GATE3) != 0)[:max(n - 2, 0)].sum()))

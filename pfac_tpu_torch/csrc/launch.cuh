@@ -90,11 +90,13 @@ struct Launch {
   }
 };
 
-// sieve.cu: K1 in `placement` (0 smem, 1 cluster, 2 global).
+// sieve.cu: K1 in `placement` (0 smem, 1 cluster, 2 global); its m2 and
+// m3 key probes added to the int64 *short_probes, or null
 cudaError_t sieve_launch(int device, const void* data, int32_t n, int32_t npad,
                          const void* arena, int32_t words, int32_t res_off,
                          const void* desc, int32_t placement, void* match,
-                         void* bits, void* counts, int32_t block, Launch* l);
+                         void* bits, void* counts, int32_t block,
+                         void* short_probes, Launch* l);
 // compact.cu
 cudaError_t compact_scan_launch(const void* counts, int32_t nblocks,
                                 int32_t thresh, void* offsets, void* counters,

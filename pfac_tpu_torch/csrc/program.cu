@@ -70,7 +70,8 @@ struct Spec {
   const void* walk_desc;
   const void* csr_arena;
   const void* csr_desc;
-  void* counters;     // int64[2]: survivors, dense blocks (compact_scan)
+  void* counters;     // int64[3]: survivors, dense blocks (compact_scan),
+                      // short probes (K1)
 };
 
 // What changes from call to call.
@@ -122,6 +123,9 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
                                    : in.result + s * npad4;
     const void* data = reinterpret_cast<const void*>(in.data[s]);
     const int32_t n = in.n[s];
+    void* short_probes = sp.counters == nullptr
+                             ? nullptr
+                             : static_cast<int64_t*>(sp.counters) + 2;
     cudaError_t err;
     out.push_back(memset_step(s, counts, sp.nblocks + 1));
     auto kernel = [&]() -> pfac::Launch* {
@@ -132,7 +136,7 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
     err = pfac::sieve_launch(sp.device, data, n, sp.npad, sp.sieve_arena,
                              sp.sieve_words, sp.res_off, sp.sieve_desc,
                              sp.placement, match, bits, counts, sp.block,
-                             kernel());
+                             short_probes, kernel());
     if (err != cudaSuccess) return err;
     if (sp.tier == kWalkTables) {
       err = pfac::block_walk_launch(

@@ -1,6 +1,6 @@
 """Same-card A/B of ``match_device`` between checkouts of the repository.
 
-    python -m pfac_tpu_torch.experiments.match_ab [--backend xla] DIR_A DIR_B [DIR ...]
+    python -m pfac_tpu_torch.experiments.match_ab [--backend xla|k1] DIR_A DIR_B [DIR ...]
 
 Each argument is the root of a checkout (this one is ``.``). The script runs
 one worker process per argument, in the order given, so a call such as
@@ -21,6 +21,17 @@ time and not the wrapper's). It uses only the API every slice of the port
 since the second has (``Matcher``, ``match_device``,
 ``_engine().tile_rows``, ``sieve.sieve``, ``block_walk.block_walk``).
 Without CUDA it exits 1.
+
+``--backend k1`` times K1 (``sieve.sieve``) alone: the Snort set on 192
+MiB of the ``snort2k`` cells' text (printable bytes with 1.5% planted
+copies, ``pfac_bench.corpora``), of one repeated byte that starts
+no pattern and of uniform random bytes, in each of its three placements
+(forced), and the 100K set on 128 MiB of its corpus in the cluster and the
+global placement. A line a case: the profiler's device ms of the kernel
+(median over 5 launches), the bound (1 B read, 4 B and a bit written a
+position, at 3.35 TB/s), a fingerprint of match and bitmap, and, on a tree
+that counts them, the short probes a position of one program call
+(``short_probes``; ``null`` elsewhere).
 
 ``--backend xla`` times the lockstep walker instead
 (``Matcher(backend="xla")``, which older trees have too):
@@ -52,6 +63,17 @@ MB = 1 << 20
 def _rulesets():
     spec = importlib.util.spec_from_file_location(
         "_ab_rulesets", os.path.join(HERE, "rulesets.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _corpora():
+    """This checkout's ``pfac_bench/corpora``, loaded by path, so that every
+    tree plants the same copies."""
+    spec = importlib.util.spec_from_file_location(
+        "pfac_corpora", os.path.join(HERE, "..", "..", "pfac_bench",
+                                     "corpora", "__init__.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -235,6 +257,65 @@ def walker_worker(tree: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def k1_worker(tree: str, dev) -> None:
+    import numpy as np
+    import torch
+
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch import trace
+    from pfac_tpu_torch.backends import sieve
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+
+    rs = _rulesets()
+    pats = rs.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    n = 192 * MB
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    text = torch.randint(32, 127, (n,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    _corpora().plant(text, pats, 0.015, np.random.default_rng(19))
+    firsts = {p[0] for p in pats}
+    quiet = next(c for c in range(256) if c not in firsts)
+    cases = [("text", m, text),
+             (f"repeated_{quiet}", m,
+              torch.full((n,), quiet, dtype=torch.uint8, device=dev)),
+             ("random", m, torch.randint(0, 256, (n,), generator=gen,
+                                         device=dev, dtype=torch.uint8))]
+    brng = np.random.default_rng(7)
+    bpats = rs.clamav_like_patterns(brng)
+    big = torch.from_numpy(rs.planted_text(brng, bpats, 128 * MB, 0.002))
+    cases.append(("big_ruleset", pt.Matcher(bpats, device=dev), big.to(dev)))
+    for name, mt, d in cases:
+        tabs = mt._engine()._sieve
+        nb = d.shape[0]
+        npad = npad_for(nb)
+        probes = None
+        if "short_probes" in getattr(trace, "DEVICE_KEYS", ()):
+            mt.match_device(d)
+            before = trace.device_counters()["short_probes"]
+            mt.match_device(d)
+            probes = (trace.device_counters()["short_probes"] - before) / npad
+        places = (("cluster", "global") if name == "big_ruleset"
+                  else sieve.PLACEMENTS)
+        for place in places:
+            run = lambda: sieve.sieve(d, nb, npad, tabs, placement=place)
+            match, bits, _ = run()
+            kernel = f"sieve_{place}_kernel"
+            kms = next((v for k, v in _kernels(run).items() if kernel in k),
+                       None)
+            print(json.dumps({
+                "tree": tree, "k1": name, "placement": place, "MB": nb / MB,
+                "device_ms": kms,
+                "bound_ms": round((nb + 4 * npad + npad / 8) / 3.35e9, 4),
+                "fingerprint": _fingerprint(match, nb) + [
+                    int(bits.to(torch.int64).sum())],
+                "short_probes": probes, "clocks": _clocks()}), flush=True)
+            del match, bits
+        del d
+        torch.cuda.empty_cache()
+
+
 def worker(tree: str, backend: str = "sieve") -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -248,6 +329,9 @@ def worker(tree: str, backend: str = "sieve") -> int:
     dev = torch.device("cuda:0")
     if backend == "xla":
         walker_worker(tree, dev)
+        return 0
+    if backend == "k1":
+        k1_worker(tree, dev)
         return 0
     t0 = time.perf_counter()
     cases = corpora(pt, dev)
@@ -278,7 +362,7 @@ def main(argv: list[str]) -> int:
     backend = "sieve"
     if argv[:1] == ["--backend"] and len(argv) >= 2:
         backend, argv = argv[1], argv[2:]
-    if not argv or backend not in ("sieve", "xla"):
+    if not argv or backend not in ("sieve", "xla", "k1"):
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:

@@ -310,6 +310,144 @@ def test_sieve_placements_match_plain(dev, placement, n):
             assert torch.equal(g, w)
 
 
+def _gate_cases():
+    """(name, patterns, host bytes) for K1's gates: text whose bytes open a
+    gate and miss; m2 and m3 hits at a byte that is also a 1-byte pattern;
+    m2 and m3 with displacements (over 64 keys each); the wide m2 (> 0x7FFF
+    IDs); no pattern of 2 or 3 bytes, so no gate opens."""
+    rng = np.random.default_rng(19)
+    longs = [b"Aqqqq", b"Bxyzw", b"\x00\x01\x02\x03"]
+    miss = [b"Aq", b"Aqr", b"Bz", b"Bzz", b"A", b"\xff\x00"] + longs
+    text = rng.choice(np.frombuffer(b"ABqrxz\xff\x00", np.uint8),
+                      size=300_001)
+    text[:8] = np.frombuffer(b"ABABAAAB", np.uint8)   # gates open, misses
+    hits = [b"A", b"AB", b"ABC", b"B", b"BC"] + longs
+    htext = np.frombuffer(b"ABCABAxBCABBA" * 23_077, np.uint8).copy()
+    keys = rng.choice(1 << 16, size=33_000, replace=False)
+    wide = [bytes([k >> 8, k & 0xFF]) for k in keys] + [b"XYZ", b"q"] + longs
+    wtext = rng.integers(0, 256, size=300_001, dtype=np.uint8)
+    chd = [bytes(rng.integers(0, 256, size=k, dtype=np.uint8))
+           for k in [2] * 400 + [3] * 300] + [b"Q"] + longs
+    ctext = rng.integers(0, 256, size=300_001, dtype=np.uint8)
+    for off in range(0, 300_000 - 3, 5):
+        p = chd[int(rng.integers(0, 700))]
+        ctext[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    none = [b"abcd", b"bcde", b"q"] + longs
+    ntext = rng.choice(np.frombuffer(b"abcdeq", np.uint8), size=300_001)
+    return [("gate_miss", miss, text), ("hit_on_1byte", hits, htext),
+            ("displaced", chd, ctext), ("wide", wide, wtext),
+            ("no_short", none, ntext)]
+
+
+@pytest.mark.parametrize("placement", sieve.PLACEMENTS)
+@pytest.mark.parametrize("case", range(5))
+def test_sieve_gates_match_plain(dev, placement, case):
+    # every placement, forced, bit-equal to the plain sieve where the gates
+    # open and miss, where m2/m3 hit over a 1-byte pattern, with n ending
+    # 1, 2 and 3 bytes into a short pattern, on displaced tables, and where
+    # no gate opens; a placement the tables do not fit raises
+    name, pats, host = _gate_cases()[case]
+    tabs = pt.Matcher(pats, device=dev)._engine()._sieve
+    d = torch.from_numpy(host).to(dev)
+    if name == "displaced":
+        assert tabs.rows[0][3] >= 0 and tabs.rows[1][3] >= 0
+    if sieve.smem_bytes(placement, tabs) > sieve.SMEM_LIMIT:
+        assert name == "wide" and placement != "global"
+        with pytest.raises(ValueError, match="shared memory"):
+            sieve.sieve(d, 8192, 65536, tabs, placement=placement)
+        return
+    ends = [host.shape[0]]
+    at = host.tobytes().find(b"ABC") if name == "hit_on_1byte" else -1
+    if at >= 0:
+        ends += [at + 1, at + 2, at + 3]
+    for n in ends:
+        npad = npad_for(n)
+        got = sieve.sieve(d, n, npad, tabs, placement=placement)
+        want = sieve.sieve_plain(d, n, npad, tabs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (name, n)
+    if name == "hit_on_1byte":
+        assert int((got[0] == 3).sum()) > 0 and int((got[0] == 5).sum()) > 0
+
+
+@pytest.mark.parametrize("placement", sieve.PLACEMENTS)
+def test_sieve_gates_keep_an_id_just_under_2_30(dev, placement):
+    # m1 words of 2^30 - 1 and 2^30 - 2, one of them under both gates: the
+    # kernel masks its gates off every ID it writes
+    import dataclasses
+    top = (1 << 30) - 1
+    pats = [b"A", b"AB", b"ABC", b"B", b"Bqrs", b"xyzw"]
+    tabs = pt.Matcher(pats, device=dev)._engine()._sieve
+    tabs = dataclasses.replace(tabs, arena=tabs.arena.clone())
+    tabs.arena[ord("A")] = top
+    tabs.arena[ord("B")] = top - 1
+    assert int(sieve.gated_m1(tabs)[ord("A")]) >> 30 == 3
+    host = np.frombuffer(b"ABCABAxBAqBqrs" * 20_000, np.uint8).copy()
+    d = torch.from_numpy(host).to(dev)
+    n = host.shape[0]
+    got = sieve.sieve(d, n, npad_for(n), tabs, placement=placement)
+    want = sieve.sieve_plain(d, n, npad_for(n), tabs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] == top).sum()) == 20_000 * 2
+
+
+@pytest.fixture(scope="module")
+def clamav_set():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    brng = np.random.default_rng(7)
+    pats = rulesets.clamav_like_patterns(brng)
+    m = pt.Matcher(pats, device="cuda")
+    return m, rulesets.planted_text(brng, pats, 4 << 20, 0.002)
+
+
+@pytest.mark.parametrize("placement", ["cluster", "global"])
+def test_sieve_gates_100k_set(dev, clamav_set, placement):
+    # the 100K set (no pattern under 8 bytes: no gate opens) in the two
+    # placements its arena fits, bit-equal to the plain sieve
+    m, host = clamav_set
+    tabs = m._engine()._sieve
+    assert not (sieve.gated_m1(tabs) >> 30).any()
+    d = torch.from_numpy(host).to(dev)
+    n = host.shape[0] - 3
+    got = sieve.sieve(d, n, npad_for(n), tabs, placement=placement)
+    want = sieve.sieve_plain(d, n, npad_for(n), tabs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("placement", sieve.PLACEMENTS)
+def test_short_probes_equal_a_host_recount(dev, placement, monkeypatch):
+    # the program's K1, forced into each placement, adds the m2 and m3 key
+    # probes it issued to the device counters: the gate rule recounted on
+    # the host (sieve.short_probes_plain), over lengths that cut a tile
+    monkeypatch.setattr(sieve, "placement_for", lambda tabs: placement)
+    pats = rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    tabs = m._engine()._sieve
+    rng = np.random.default_rng(23)
+    text = rulesets.planted_text(rng, pats, 3 << 20, 0.015)
+    inputs = [torch.from_numpy(text[:n]).to(dev)
+              for n in (1, 5, 300_001, 3 << 20)]
+    inputs.append(torch.from_numpy(
+        rng.integers(0, 256, size=1 << 20, dtype=np.uint8)).to(dev))
+    want = sum(sieve.short_probes_plain(d, d.shape[0], tabs) for d in inputs)
+    m.match_device(inputs[0])
+    trace.reset()
+    for d in inputs:
+        got = m.match_device(d)
+        assert _n(f"sieve_{placement}_kernel") >= 1
+    assert torch.equal(got, pipeline.run(
+        inputs[-1], 1 << 20, npad_for(1 << 20), tabs, m._engine()._walk,
+        plain=True))
+    c = m.counters()
+    assert c["short_probes"] == want > 0
+    share = sieve.short_probes_plain(inputs[3], 3 << 20, tabs) / (6 << 20)
+    assert 0.15 < share < 0.35, share
+
+
 def test_sieve_placement_rule(dev):
     small = pt.Matcher(_ruleset(3)[0], device=dev)._engine()._sieve
     assert sieve.placement_for(small) == "smem"

@@ -115,3 +115,73 @@ def test_wide_ids():
     pats += [b"a", b"b", b"c", b"XYZq", b"XYZ"]
     data = bytes(rng.integers(0, 256, size=3000, dtype=np.uint8)) + b"XYZqabc"
     _compare(pats, data)
+
+
+def _short_rulesets():
+    """(name, patterns): the README's, the Snort-scale set, random sets
+    over small alphabets, > 0x7FFF IDs (a wide m2 with displacements) and
+    a set with no pattern of 2 or 3 bytes."""
+    from pfac_tpu_torch.experiments.rulesets import snort_like_patterns
+    out = [("readme", [b"AB", b"ABG", b"BEDE", b"ED"]),
+           ("snort", snort_like_patterns())]
+    for seed in range(3):
+        rng = np.random.default_rng(100 + seed)
+        out.append((f"random{seed}", [
+            bytes(rng.integers(0, 256, size=int(rng.integers(1, 6)),
+                               dtype=np.uint8)) for _ in range(200)]))
+    rng = np.random.default_rng(9)
+    keys = rng.choice(1 << 16, size=33000, replace=False)
+    out.append(("wide", [bytes([k >> 8, k & 0xFF]) for k in keys]
+                + [b"XYZ", b"q"]))
+    out.append(("long_only", [b"abcd", b"\x00\x01\x02\x03\x04", b"z" * 9]))
+    return out
+
+
+@pytest.mark.parametrize("name,pats", _short_rulesets(),
+                         ids=[nm for nm, _ in _short_rulesets()])
+def test_short_probes_plain_is_the_gate_rule(name, pats):
+    # a position probes m2 where its byte starts some m2 key and two bytes
+    # fit, m3 where it starts some m3 key and three fit: recounted from the
+    # host tables' key sets and from the patterns themselves
+    a = Automaton.from_patterns(pats)
+    host = SieveTables.build(a)
+    tabs = host.to_device("cpu")
+    firsts = [set() if p is None else set((p.keys & 0xFF).tolist())
+              for p in (host.m2, host.m3)]
+    assert firsts == [{p[0] for p in pats if len(p) == k} for k in (2, 3)]
+    g = sieve.gated_m1(tabs)
+    assert torch.equal(g & (sieve.GATE2 - 1),
+                       torch.from_numpy(host.m1.astype(np.int64)))
+    for k, gate in ((0, sieve.GATE2), (1, sieve.GATE3)):
+        assert {c for c in range(256) if int(g[c]) & gate} == firsts[k]
+    rng = np.random.default_rng(len(pats))
+    for n in (0, 1, 2, 3, 4097):
+        data = rng.integers(0, 256, size=n, dtype=np.uint8)
+        for off in range(0, max(n - 8, 0), 37):
+            p = pats[int(rng.integers(0, len(pats)))][:8]
+            data[off:off + len(p)] = np.frombuffer(p, np.uint8)
+        want = sum(int(data[pos]) in firsts[0] for pos in range(n - 1)) + \
+            sum(int(data[pos]) in firsts[1] for pos in range(n - 2))
+        got = sieve.short_probes_plain(torch.from_numpy(data), n, tabs)
+        assert got == want, (name, n)
+    if name == "long_only":
+        assert firsts == [set(), set()] and not (g >> 30).any()
+
+
+def test_gated_m1_keeps_an_id_just_under_2_30():
+    # the gates sit above every ID: an m1 word of 2^30 - 1 whose byte opens
+    # both gates keeps its ID under the mask
+    top = (1 << 30) - 1
+    a = Automaton.from_patterns([b"A", b"AB", b"ABC", b"B", b"xyzw"])
+    tabs = SieveTables.build(a).to_device("cpu")
+    tabs.arena[ord("A")] = top
+    tabs.arena[ord("B")] = top - 1
+    g = sieve.gated_m1(tabs)
+    assert int(g[ord("A")]) == top | sieve.GATE2 | sieve.GATE3
+    assert int(g[ord("B")]) == top - 1
+    assert int(g[ord("x")]) == 0
+    data = torch.frombuffer(bytearray(b"ABCAB"), dtype=torch.uint8)
+    # A at 0 and 3: m2 at both (n - pos > 1), m3 only at 0
+    assert sieve.short_probes_plain(data, 5, tabs) == 3
+    match, _, _ = sieve.sieve_plain(data, 5, npad_for(5), tabs)
+    assert match[:5].tolist() == [3, top - 1, 0, 2, top - 1]

@@ -117,7 +117,8 @@ def test_counters_count_time_and_reset():
         "sieve_smem_kernel": 3, "walk_kernel": 6}
     trace.reset()
     assert not any(trace.counters().values()) and t.calls == 0
-    assert trace.device_counters() == {"survivors": 0, "blocks_escaped": 0}
+    assert trace.device_counters() == {"survivors": 0, "blocks_escaped": 0,
+                                       "short_probes": 0}
 
 
 def test_handle_counters_read_the_set_up():
