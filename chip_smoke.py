@@ -128,7 +128,9 @@ Phases, each on lines of its own:
    patterns, 396,847 survivors, no block dense enough to escape) the main
    path's launches counted (K1, both compaction kernels, K2 and K3 once;
    K3 walks no block), no ``aten::nonzero``, the call again under
-   ``torch.cuda.set_sync_debug_mode("error")``, K2's time on its
+   ``torch.cuda.set_sync_debug_mode("error")``, K2's walk steps and lane
+   slots of one call (the device counters ``walk_steps``, ``walk_slots``)
+   beside the host's recount of the steps, K2's time on its
    survivors as in phase 8 and on the first one and two survivors a lane
    of its grid, and the e2e with the card's busy share; the survivor counts of the DEFCON-like and
    virus-dense corpora against the reference's records; the reduce on
@@ -970,6 +972,23 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
           f"{nonzero}; again under set_sync_debug_mode('error'): no host "
           f"synchronisation, equal")
     del again, res, want
+    # K2's walk steps and lane slots, counted on the card by one program
+    # call, against the plain walk's iterations over the same survivors
+    before = trace.device_counters()
+    eng.match_device(d)
+    after = trace.device_counters()
+    steps, slots = (after[k] - before[k] for k in ("walk_steps",
+                                                   "walk_slots"))
+    kpos = compact.compact_plain(bits, counts,
+                                 pipeline.threshold(eng._walk, block))
+    want_steps = walk.walk_steps_plain(d, n, kpos, eng._walk)
+    assert steps == want_steps, (steps, want_steps)
+    assert slots % 32 == 0 and slots >= steps, (steps, slots)
+    print(f"walk counters virus_dense_worst: walk_steps {steps} (host "
+          f"recount {want_steps}, equal), walk_slots {slots}; "
+          f"{steps / kpos.numel():.3f} steps a survivor over "
+          f"{kpos.numel()} survivors, lanes busy {100 * steps / slots:.2f}%")
+    del kpos
 
     pos, cnt = compact.compact(bits, counts,
                                pipeline.threshold(eng._walk, block))

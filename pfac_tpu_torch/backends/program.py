@@ -27,8 +27,9 @@ so its stream semantics hold and no buffer is shared between calls), one ``ctype
 and one increment of the program's call count (``trace``: its kernels'
 launches and the positions it scans are that count times its fixed lists,
 expanded where the counters are read). Its ``compact_scan_kernel`` adds the
-call's survivors and escaped blocks, and its K1 the short probes, to the
-device's counter words (``trace.device_buffer``), on the card.
+call's survivors and escaped blocks, its K1 the short probes, and its K2
+the walk steps and lane slots, to the device's counter words
+(``trace.device_buffer``), on the card.
 
 Only CUDA tensors reach a program: ``pipeline.run`` and the per-kernel
 wrappers stay the CPU path and the program's reference on the card. A

@@ -13,7 +13,10 @@ number in a 1-element device tensor (the compaction's total): the kernel
 reads the count on the device, so the host never waits for it. The kernel
 runs on a persistent grid whose lanes take the next survivor as soon as a
 walk ends, with the descriptor rows and, by depth, as much of the arena as
-fits (:func:`resident_words`) in shared memory.
+fits (:func:`resident_words`) in shared memory. Through a program it counts
+its loop iterations on the card (``trace``'s ``walk_steps`` and
+``walk_slots``; :func:`walk_steps_plain` recounts the steps on the host);
+the wrapper :func:`walk` counts nothing.
 """
 from __future__ import annotations
 
@@ -137,6 +140,33 @@ def walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
                count: torch.Tensor | None = None) -> None:
     """Plain torch version of K2, on the data's device: the first `count`
     positions of `pos`, or all of them."""
+    p, match, _ = _plain(data, n, pos, tabs, count)
+    deep = match > 0
+    out[p[deep]] = match[deep].to(torch.int32)
+    return None
+
+
+def walk_steps_each_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
+                          tabs: Packed,
+                          count: torch.Tensor | None = None) -> torch.Tensor:
+    """K2's loop iterations for each walked position (int64, in `pos`'s
+    order): the entry probe, then one a step the walk was alive at; a walk
+    ends on a missing state (DEAD), at a step with no main table, where n
+    cuts it, or after the last step."""
+    return _plain(data, n, pos, tabs, count)[2]
+
+
+def walk_steps_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
+                     tabs: Packed, count: torch.Tensor | None = None) -> int:
+    """The ``walk_steps`` a program's K2 adds for these positions: the sum
+    of :func:`walk_steps_each_plain`."""
+    return int(walk_steps_each_plain(data, n, pos, tabs, count).sum())
+
+
+def _plain(data: torch.Tensor, n: int, pos: torch.Tensor, tabs: Packed,
+           count: torch.Tensor | None):
+    """The plain walk -> (positions as int64, the longest match of >= 4
+    bytes at each (0: none), K2's loop iterations for each)."""
     if count is not None:
         pos = pos[:int(count)]
     a = unsigned(tabs.arena)
@@ -152,14 +182,17 @@ def walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
     hit, idx = probe(a, tabs.rows[0], key4)
     state = torch.where(hit & ok4, idx, DEAD)
     match = torch.zeros_like(p)
+    iters = torch.ones_like(p)          # the entry probe
     if tabs.rows[1][6]:
         hit, pid = probe(a, tabs.rows[1], key4)
         match = torch.where(hit & ok4, pid, match)
     steps = tabs.rows[2:]
     for s in range(len(steps) // 3):
         main, odd, even = steps[3 * s: 3 * s + 3]
-        if not bool((state != DEAD).any()):
+        alive = state != DEAD
+        if not bool(alive.any()):
             break                       # a DEAD state never hits again
+        iters += alive
         d = 4 + 2 * s
         c1 = byte(d)
         if odd[6]:
@@ -174,6 +207,4 @@ def walk_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
             ehit, pid = probe(a, even, mkey)
             match = torch.where(ehit & (maxd > d + 1), pid, match)
         state = torch.where(hit, nxt, DEAD)
-    deep = match > 0
-    out[p[deep]] = match[deep].to(torch.int32)
-    return None
+    return p, match, iters

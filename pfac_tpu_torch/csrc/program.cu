@@ -70,8 +70,8 @@ struct Spec {
   const void* walk_desc;
   const void* csr_arena;
   const void* csr_desc;
-  void* counters;     // int64[3]: survivors, dense blocks (compact_scan),
-                      // short probes (K1)
+  void* counters;     // int64[5]: survivors, dense blocks (compact_scan),
+                      // short probes (K1), walk steps, lane slots (K2)
 };
 
 // What changes from call to call.
@@ -123,9 +123,9 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
                                    : in.result + s * npad4;
     const void* data = reinterpret_cast<const void*>(in.data[s]);
     const int32_t n = in.n[s];
-    void* short_probes = sp.counters == nullptr
-                             ? nullptr
-                             : static_cast<int64_t*>(sp.counters) + 2;
+    int64_t* const words = static_cast<int64_t*>(sp.counters);
+    void* short_probes = words == nullptr ? nullptr : words + 2;
+    void* walk_counts = words == nullptr ? nullptr : words + 3;
     cudaError_t err;
     out.push_back(memset_step(s, counts, sp.nblocks + 1));
     auto kernel = [&]() -> pfac::Launch* {
@@ -157,7 +157,7 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
         err = pfac::walk_launch(sp.device, data, n, pos, total, sp.capacity,
                                 sp.walk_arena, sp.walk_words, sp.k2_resident,
                                 sp.walk_desc, sp.walk_nsteps, match,
-                                kernel());
+                                walk_counts, kernel());
       else
         err = pfac::csr_walk_launch(sp.device, data, n, pos, total,
                                     sp.capacity, sp.csr_arena, sp.csr_desc,

@@ -62,6 +62,14 @@
 // * a survivor's bytes by 16-byte loads from its aligned-down address, two
 //   chunks in registers, the next chunk loaded as the walk enters the
 //   second (walk_common.cuh::Bytes): no byte load on the dependent chain.
+// * given a program's counter words, it counts its own work there: the
+//   loop iterations in which a lane had a walk (walk_steps; the entry
+//   counts as one, so a walk of t iterations adds t), and each warp's
+//   iterations times 32 (walk_slots, the lane slots the grid spent: a warp
+//   steps as long as its busiest lane). A lane sums its walks' iterations
+//   in a register, its warp reduces them as it leaves the loop, and the
+//   CTA adds them with one atomic each; the per-kernel entry point passes
+//   null and counts nothing.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,6 +83,7 @@ namespace {
 
 constexpr uint32_t kDead = 0xFFFFu;
 constexpr int kThreads = 1024;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kHeader = 16;                   // the tables' mbarrier
 // A CTA with fewer survivors reads a split arena through L1/L2: staging it
 // (up to 227 KB) would take longer than its few walks.
@@ -110,8 +119,10 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
             const int32_t* __restrict__ pos, const int32_t* __restrict__ count,
             int32_t cap, const int32_t* __restrict__ arena, int32_t resident,
             const int32_t* __restrict__ desc, int32_t nsteps,
-            int32_t* __restrict__ out) {
+            int32_t* __restrict__ out,
+            unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ unsigned long long s_count[2];    // the CTA's steps and slots
   const int32_t total = pfac::survivors(count, cap);
   const int32_t runs = (total + 31) / 32;      // of 32 consecutive survivors
   const int32_t ctas = min(static_cast<int32_t>(gridDim.x), runs);
@@ -135,6 +146,7 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
   if (tid == 0) {
     pfac::mbar_init(bar);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    s_count[0] = s_count[1] = 0;
   }
   __syncthreads();
   const int32_t bulk_words = resident & ~3;
@@ -166,57 +178,78 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
     begin();
   }
   __syncthreads();                              // sdesc, tab's last words
-  if (!has(k)) return;                          // after the CTA's last barrier
-  if (bulk_words > 0) pfac::mbar_wait(bar, 0);
-  using Tab = std::conditional_t<kAllResident, pfac::SmemTab, pfac::SplitTab>;
-  Tab tb;
-  if constexpr (kAllResident) tb = Tab{tab};
-  else tb = Tab{tab, arena, static_cast<uint32_t>(resident)};
+  const unsigned walkers = __ballot_sync(kFull, has(k));   // the warp's
+  // without counters this is the CTA's last barrier
+  if (!has(k) && counters == nullptr) return;
+  if (has(k)) {
+    if (bulk_words > 0) pfac::mbar_wait(bar, 0);
+    using Tab =
+        std::conditional_t<kAllResident, pfac::SmemTab, pfac::SplitTab>;
+    Tab tb;
+    uint32_t steps = 0;                         // the lane's iterations
+    if constexpr (kAllResident) tb = Tab{tab};
+    else tb = Tab{tab, arena, static_cast<uint32_t>(resident)};
 
-  // 3. one step of the lane's walk an iteration. t == 0 is the entry
-  // (rows 0, 1; bytes 2, 3 after the two standing in for the state);
-  // t >= 1 is step t - 1 (main 3t - 1, odd 3t, even 3t + 1; depth d)
-  for (;;) {
-    const int32_t d = 2 + 2 * t;
-    const int srow = t == 0 ? 0 : 3 * t - 1;
-    const pfac::Probe sp = row_probe(sdesc, srow);
-    const pfac::Probe op = row_probe(sdesc, srow + 1);
-    const pfac::Probe ep = row_probe(sdesc, t == 0 ? 1 : srow + 2);
-    const uint32_t o = w.seek(data + p + d, end);
-    const uint32_t mkey = (state << 16) | pair_be(w, o);
-    const uint32_t okey = mkey >> 8;            // state << 8 | byte d
-    const bool s_on = t == 0 || sp.present;     // the entry row always
-    const bool o_on = t > 0 && op.present;
-    const bool e_on = s_on && ep.present;       // no main: the walk ends
-    uint32_t ss = 0, so = 0, se = 0;
-    if (s_on) ss = pfac::probe_slot(tb, sp, mkey);
-    if (o_on) so = pfac::probe_slot(tb, op, okey);
-    if (e_on) se = pfac::probe_slot(tb, ep, mkey);
-    uint32_t ks = 0, vs = 0, ko = 0, vo = 0, ke = 0, ve = 0;
-    if (s_on) {
-      ks = tb[sp.key_off + ss];
-      vs = tb[sp.val_off + ss];
+    // 3. one step of the lane's walk an iteration. t == 0 is the entry
+    // (rows 0, 1; bytes 2, 3 after the two standing in for the state);
+    // t >= 1 is step t - 1 (main 3t - 1, odd 3t, even 3t + 1; depth d)
+    for (;;) {
+      const int32_t d = 2 + 2 * t;
+      const int srow = t == 0 ? 0 : 3 * t - 1;
+      const pfac::Probe sp = row_probe(sdesc, srow);
+      const pfac::Probe op = row_probe(sdesc, srow + 1);
+      const pfac::Probe ep = row_probe(sdesc, t == 0 ? 1 : srow + 2);
+      const uint32_t o = w.seek(data + p + d, end);
+      const uint32_t mkey = (state << 16) | pair_be(w, o);
+      const uint32_t okey = mkey >> 8;            // state << 8 | byte d
+      const bool s_on = t == 0 || sp.present;     // the entry row always
+      const bool o_on = t > 0 && op.present;
+      const bool e_on = s_on && ep.present;       // no main: the walk ends
+      uint32_t ss = 0, so = 0, se = 0;
+      if (s_on) ss = pfac::probe_slot(tb, sp, mkey);
+      if (o_on) so = pfac::probe_slot(tb, op, okey);
+      if (e_on) se = pfac::probe_slot(tb, ep, mkey);
+      uint32_t ks = 0, vs = 0, ko = 0, vo = 0, ke = 0, ve = 0;
+      if (s_on) {
+        ks = tb[sp.key_off + ss];
+        vs = tb[sp.val_off + ss];
+      }
+      if (o_on) {
+        ko = tb[op.key_off + so];
+        vo = tb[op.val_off + so];
+      }
+      if (e_on) {
+        ke = tb[ep.key_off + se];
+        ve = tb[ep.val_off + se];
+      }
+      if (o_on && rd > d && ko == okey) match = vo;
+      if (e_on && rd > d + 1 && ke == mkey) match = ve;
+      const bool alive = s_on && rd > d + 1 && ks == mkey;
+      state = alive ? vs : kDead;
+      ++t;
+      if (!alive || t > nsteps) {                 // the walk ends
+        if (match != 0) out[p] = static_cast<int32_t>(match);
+        steps += t;
+        k += kThreads;
+        if (!has(k)) break;
+        p = p_next;
+        begin();
+      }
     }
-    if (o_on) {
-      ko = tb[op.key_off + so];
-      vo = tb[op.val_off + so];
+    if (counters != nullptr) {
+      const uint32_t sum = __reduce_add_sync(walkers, steps);
+      const uint32_t most = __reduce_max_sync(walkers, steps);
+      if ((tid & 31) == __ffs(walkers) - 1) {
+        atomicAdd(&s_count[0], static_cast<unsigned long long>(sum));
+        atomicAdd(&s_count[1], 32ull * most);
+      }
     }
-    if (e_on) {
-      ke = tb[ep.key_off + se];
-      ve = tb[ep.val_off + se];
-    }
-    if (o_on && rd > d && ko == okey) match = vo;
-    if (e_on && rd > d + 1 && ke == mkey) match = ve;
-    const bool alive = s_on && rd > d + 1 && ks == mkey;
-    state = alive ? vs : kDead;
-    ++t;
-    if (!alive || t > nsteps) {                 // the walk ends
-      if (match != 0) out[p] = static_cast<int32_t>(match);
-      k += kThreads;
-      if (!has(k)) break;
-      p = p_next;
-      begin();
-    }
+  }
+  if (counters == nullptr) return;              // uniform
+  __syncthreads();
+  if (tid == 0 && s_count[0] != 0) {
+    atomicAdd(counters, s_count[0]);
+    atomicAdd(counters + 1, s_count[1]);
   }
 }
 
@@ -235,14 +268,16 @@ const void* kernel_of(bool all) {
 // min(*count, cap) of them walked (count: a device int32, or null for all
 // cap), each < n; out: int32[>= n]; arena: int32[words], 16-byte aligned,
 // its first `resident` words (any prefix, 0 included) staged in shared
-// memory; desc: 2 + 3 * nsteps rows. Else cudaErrorInvalidValue; a prefix
-// that does not fit shared memory fails the launch. One launch, whatever
-// the count.
+// memory; desc: 2 + 3 * nsteps rows; counters: int64[2] the walk steps and
+// the lane slots are added to, or null. Else cudaErrorInvalidValue; a
+// prefix that does not fit shared memory fails the launch. One launch,
+// whatever the count.
 cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
                               const void* pos, const void* count, int32_t cap,
                               const void* arena, int32_t words,
                               int32_t resident, const void* desc,
-                              int32_t nsteps, void* out, Launch* l) {
+                              int32_t nsteps, void* out, void* counters,
+                              Launch* l) {
   *l = Launch{};
   if (n < 0 || cap < 0 || nsteps < 0 || resident < 0 || resident > words ||
       reinterpret_cast<uintptr_t>(arena) % 16 != 0)
@@ -259,18 +294,19 @@ cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
   const auto* a = static_cast<const int32_t*>(arena);
   const auto* ds = static_cast<const int32_t*>(desc);
   auto* o = static_cast<int32_t*>(out);
+  auto* ct = static_cast<unsigned long long*>(counters);
   const auto g = static_cast<unsigned>(grid);
   if (all)
     l->set(walk_kernel<true>, g, kThreads, smem, d, n, ps, c, cap, a,
-           resident, ds, nsteps, o);
+           resident, ds, nsteps, o, ct);
   else
     l->set(walk_kernel<false>, g, kThreads, smem, d, n, ps, c, cap, a,
-           resident, ds, nsteps, o);
+           resident, ds, nsteps, o, ct);
   return cudaSuccess;
 }
 
-// As walk_launch; launches on `stream` and returns the launch's
-// cudaError_t.
+// As walk_launch, counting nothing; launches on `stream` and returns the
+// launch's cudaError_t.
 extern "C" int pfac_walk(int device, const void* data, int32_t n,
                          const void* pos, const void* count, int32_t cap,
                          const void* arena, int32_t words, int32_t resident,
@@ -280,7 +316,7 @@ extern "C" int pfac_walk(int device, const void* data, int32_t n,
   if (err != cudaSuccess) return static_cast<int>(err);
   pfac::Launch l;
   err = pfac::walk_launch(device, data, n, pos, count, cap, arena, words,
-                          resident, desc, nsteps, out, &l);
+                          resident, desc, nsteps, out, nullptr, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,6 @@
 """Same-card A/B of ``match_device`` between checkouts of the repository.
 
-    python -m pfac_tpu_torch.experiments.match_ab [--backend xla|k1] DIR_A DIR_B [DIR ...]
+    python -m pfac_tpu_torch.experiments.match_ab [--backend xla|k1|k2] DIR_A DIR_B [DIR ...]
 
 Each argument is the root of a checkout (this one is ``.``). The script runs
 one worker process per argument, in the order given, so a call such as
@@ -32,6 +32,17 @@ global placement. A line a case: the profiler's device ms of the kernel
 position, at 3.35 TB/s), a fingerprint of match and bitmap, and, on a tree
 that counts them, the short probes a position of one program call
 (``short_probes``; ``null`` elsewhere).
+
+``--backend k2`` times K2 (``walk_kernel``) where it carries the load: the
+Snort set on ``virus_dense_worst`` (8 MB, drawn as ``--backend xla`` draws
+it), on 64 MiB of patterns drawn and concatenated by the same recipe (the
+``snort2k.virus_dense_64MB`` cell's) and on 192 MiB of the cells' text. A line a case:
+the profiler's device ms of K2 inside a program call (``match_device``;
+median over 20 calls) and of each other kernel, the call's CUDA-event ms,
+K2 alone through its wrapper on the same survivors (``k2_batched_ms``:
+batches of 10 ``walk.walk`` calls), a fingerprint, and, on a tree that
+counts them, the walk steps and lane slots of one call (``walk_steps``,
+``walk_slots``; ``null`` elsewhere).
 
 ``--backend xla`` times the lockstep walker instead
 (``Matcher(backend="xla")``, which older trees have too):
@@ -316,6 +327,61 @@ def k1_worker(tree: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def k2_worker(tree: str, dev) -> None:
+    import numpy as np
+    import torch
+
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch import trace
+    from pfac_tpu_torch.backends import compact, pipeline, sieve, walk
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+
+    rs = _rulesets()
+    pats = rs.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    rng = np.random.default_rng(42)        # as walker_corpora draws it
+    rng.integers(0, 256, size=128 * MB, dtype=np.uint8)
+    rs.planted_text(rng, pats, 128 * MB, 0.015)
+    virus = torch.from_numpy(rs.pattern_stream(rng, pats, 8 * MB)).to(dev)
+    dense = torch.from_numpy(rs.pattern_stream(
+        np.random.default_rng(20), pats, 64 * MB)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    text = torch.randint(32, 127, (192 * MB,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    _corpora().plant(text, pats, 0.015, np.random.default_rng(19))
+    counted = "walk_steps" in getattr(trace, "DEVICE_KEYS", ())
+    for name, d in (("virus_dense_worst", virus), ("pattern_stream_64MB",
+                                                    dense), ("text", text)):
+        n = d.shape[0]
+        res = m.match_device(d)
+        steps = slots = None
+        if counted:
+            before = trace.device_counters()
+            m.match_device(d)
+            after = trace.device_counters()
+            steps, slots = (after[k] - before[k]
+                            for k in ("walk_steps", "walk_slots"))
+        kernels = _kernels(lambda: m.match_device(d), reps=20)
+        k2 = next((v for k, v in kernels.items()
+                   if "walk_kernel<" in k and "block_walk" not in k), None)
+        base, bits, counts = sieve.sieve(d, n, npad_for(n), eng._sieve)
+        pos, cnt = compact.compact(bits, counts, pipeline.threshold(
+            eng._walk, eng.tile_rows * 128))
+        print(json.dumps({
+            "tree": tree, "k2": name, "MB": n / MB, "k2_ms": k2,
+            "device_ms": kernels, "ms": _ms(lambda: m.match_device(d)),
+            "k2_batched_ms": _ms(lambda: walk.walk(d, n, pos, base,
+                                                   eng._walk, cnt),
+                                 batch=10),
+            "survivors": int(cnt), "walk_steps": steps, "walk_slots": slots,
+            "fingerprint": _fingerprint(res, n), "clocks": _clocks()}),
+            flush=True)
+        del res, base, bits, counts, pos, cnt
+        torch.cuda.empty_cache()
+
+
 def worker(tree: str, backend: str = "sieve") -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -332,6 +398,9 @@ def worker(tree: str, backend: str = "sieve") -> int:
         return 0
     if backend == "k1":
         k1_worker(tree, dev)
+        return 0
+    if backend == "k2":
+        k2_worker(tree, dev)
         return 0
     t0 = time.perf_counter()
     cases = corpora(pt, dev)
@@ -362,7 +431,7 @@ def main(argv: list[str]) -> int:
     backend = "sieve"
     if argv[:1] == ["--backend"] and len(argv) >= 2:
         backend, argv = argv[1], argv[2:]
-    if not argv or backend not in ("sieve", "xla", "k1"):
+    if not argv or backend not in ("sieve", "xla", "k1", "k2"):
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:

@@ -233,8 +233,9 @@ class Matcher:
         """The port's counters (``trace.counters``: launches, positions
         scanned, programs built, set-up seconds, span totals while profiled)
         and the device counters (``survivors``, ``blocks_escaped``,
-        ``short_probes``), read now. They are the process's: every handle adds to them. A key never
-        counted reads 0. This read, and no call, waits for the card."""
+        ``short_probes``, ``walk_steps``, ``walk_slots``), read now. They
+        are the process's: every handle adds to them. A key never counted
+        reads 0. This read, and no call, waits for the card."""
         out = trace.counters()
         out.update(trace.device_counters())
         return out

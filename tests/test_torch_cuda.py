@@ -1501,6 +1501,88 @@ def test_device_counters_equal_a_host_recount(dev):
     assert got["launch.program"] == 6
 
 
+def _k2_positions(eng, d):
+    """The positions the program's compaction hands K2 for d, on the
+    host's plain pieces."""
+    n = d.shape[0]
+    _, bits, counts = sieve.sieve_plain(d, n, npad_for(n), eng._sieve)
+    return compact.compact_plain(bits, counts, pipeline.threshold(
+        eng._walk, eng.tile_rows * 128))
+
+
+@pytest.mark.parametrize("op", ["match_device", "match_reduce_device"])
+def test_walk_counters_equal_a_host_recount(dev, op):
+    # K2's walk steps, added on the card by every program call, equal the
+    # plain walk's iterations (walk.walk_steps_plain) over the same
+    # survivors: the cells' text and the virus-dense pattern stream, at
+    # lengths that cut a block; the lane slots are whole warps' worth
+    pats = rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    rng = np.random.default_rng(29)
+    inputs = [torch.from_numpy(h).to(dev) for h in (
+        rulesets.planted_text(rng, pats, 3 << 20, 0.015),
+        rulesets.pattern_stream(rng, pats, 1 << 20),
+        rulesets.pattern_stream(rng, pats, 300_001))]
+    want = sum(walk.walk_steps_plain(d, d.shape[0], _k2_positions(eng, d),
+                                     eng._walk) for d in inputs)
+    call = getattr(m, op)
+    call(inputs[0])
+    trace.reset()
+    for d in inputs:
+        call(d)
+    c = m.counters()
+    assert c["walk_steps"] == want > 0
+    assert c["walk_slots"] % 32 == 0
+    assert c["walk_steps"] <= c["walk_slots"] < 32 * c["walk_steps"]
+
+
+def test_one_warp_of_survivors_spends_its_longest_walk(dev):
+    # three long patterns in a byte that starts none: three survivors, one
+    # warp, whose iterations are the longest of the three walks
+    pats = rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    quiet = next(c for c in range(256) if c not in {p[0] for p in pats})
+    host = np.full(1 << 16, quiet, np.uint8)
+    for off, p in zip((100, 5000, 40_000), sorted(pats, key=len)[-3:]):
+        host[off:off + len(p)] = np.frombuffer(p, np.uint8)
+    d = torch.from_numpy(host).to(dev)
+    each = walk.walk_steps_each_plain(d, d.shape[0], _k2_positions(eng, d),
+                                      eng._walk)
+    assert each.numel() == 3 and int(each.min()) > 10
+    m.match_device(d)
+    trace.reset()
+    m.match_device(d)
+    c = m.counters()
+    assert c["walk_steps"] == int(each.sum())
+    assert c["walk_slots"] == 32 * int(each.max())
+
+
+def test_the_walk_wrapper_counts_nothing(dev):
+    # the per-kernel wrapper (and pipeline.run, made of wrappers) passes
+    # null: the device's words move only with a program
+    pats = rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    d = torch.from_numpy(rulesets.pattern_stream(
+        np.random.default_rng(31), pats, 1 << 20)).to(dev)
+    n = d.shape[0]
+    m.match_device(d)                   # the device's counter words exist
+    trace.reset()
+    match, bits, counts = sieve.sieve(d, n, npad_for(n), eng._sieve)
+    pos, count = compact.compact(bits, counts, pipeline.threshold(
+        eng._walk, eng.tile_rows * 128))
+    walk.walk(d, n, pos, match, eng._walk, count)
+    pipeline.run(d, n, npad_for(n), eng._sieve, eng._walk)
+    assert _n("walk_kernel") == 2
+    c = trace.device_counters()
+    assert c["walk_steps"] == c["walk_slots"] == 0
+    m.match_device(d)
+    assert trace.device_counters()["walk_steps"] == walk.walk_steps_plain(
+        d, n, _k2_positions(eng, d), eng._walk)
+
+
 def test_a_new_length_builds_one_program(dev):
     pats, rng = _ruleset(65)
     m = pt.Matcher(pats, device=dev)

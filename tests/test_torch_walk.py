@@ -122,3 +122,71 @@ def test_positions_past_the_count_are_not_walked(count):
     assert int((out > 0).sum()) == min(count, pos.numel())
     with pytest.raises(ValueError, match="count"):
         walk.walk(t, n, pos, out, wt, torch.tensor([count]))   # int64
+
+
+# "abcdefghi" makes three steps: depth 4 -> 6 and 6 -> 8 by main tables,
+# then at depth 8 an odd table (the 9-byte pattern) and no main table
+STEP_PATS = [b"abcdefghi", b"abcd", b"qwer"]
+STEP_DATA = b"xxxxabcdzzabcdefghi..qwerabcdefghi"
+
+
+@pytest.mark.parametrize("at,cut,want", [
+    (0, 0, 1),      # "xxxx": no entry state, the entry probe alone
+    (4, 0, 2),      # "abcdzz": entry, then step 0 finds no state (DEAD)
+    (21, 0, 2),     # "qwer" + "ab": a pattern's leaf, DEAD after step 0
+    (10, 0, 4),     # the whole 9-byte pattern: entry, steps 0 and 1, and
+                    # step 2, which has no main table, ends it
+    (25, 3, 3),     # n cuts the last copy to 6 bytes: step 1 needs 8
+    (25, 4, 2),     # ... to 5 bytes: step 0 needs 6
+])
+def test_walk_steps_plain_hand_worked(at, cut, want):
+    wt = build_walk_tables(Automaton.from_patterns(STEP_PATS)).to_device(
+        "cpu")
+    assert walk.steps_of(wt) == 3
+    rows = [r[6] for r in wt.rows[2:]]          # present: main, odd, even
+    assert rows == [1, 0, 0, 1, 0, 0, 0, 1, 0]
+    data = torch.frombuffer(bytearray(STEP_DATA), dtype=torch.uint8)
+    n = len(STEP_DATA) - cut
+    pos = torch.tensor([at], dtype=torch.int32)
+    assert walk.walk_steps_each_plain(data, n, pos, wt).tolist() == [want]
+    assert walk.walk_steps_plain(data, n, pos, wt) == want
+
+
+def test_walk_steps_plain_sums_the_counted_positions():
+    wt = build_walk_tables(Automaton.from_patterns(STEP_PATS)).to_device(
+        "cpu")
+    data = torch.frombuffer(bytearray(STEP_DATA), dtype=torch.uint8)
+    pos = torch.tensor([0, 4, 10, 21, 25, 10], dtype=torch.int32)
+    n = len(STEP_DATA)
+    assert walk.walk_steps_each_plain(data, n, pos, wt).tolist() == [
+        1, 2, 4, 2, 4, 4]
+    assert walk.walk_steps_plain(data, n, pos, wt,
+                                 torch.tensor([3], dtype=torch.int32)) == 7
+    assert walk.walk_steps_plain(data, n, pos[:0], wt) == 0
+
+
+def test_matcher_on_a_pattern_stream_equals_golden():
+    # the virus-dense worst case at a small size: the Snort-like set's
+    # patterns concatenated; K1 lets a few percent of the positions
+    # through, and the walk takes them several steps deep
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch.backends import golden, sieve
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+    from pfac_tpu_torch.experiments import rulesets
+
+    pats = rulesets.snort_like_patterns()
+    host = rulesets.pattern_stream(np.random.default_rng(20), pats, 1 << 16)
+    m = pt.Matcher(pats, device="cpu")
+    data = torch.from_numpy(host.copy())
+    got = m.match_device(data)
+    n = host.shape[0]
+    assert got.numpy()[:n].tolist() == golden.match_dense_batch(
+        m.automaton, host).tolist()
+    assert not got[n:].any()
+    eng = m._engine()
+    _, bits, counts = sieve.sieve_plain(data, n, npad_for(n), eng._sieve)
+    pos = torch.nonzero(sieve.unpack_bits(bits)[:n]).flatten().to(
+        torch.int32)
+    assert 0.02 < pos.numel() / n < 0.08, pos.numel()
+    steps = walk.walk_steps_plain(data, n, pos, eng._walk)
+    assert 1.5 < steps / pos.numel() < 20, steps / pos.numel()
