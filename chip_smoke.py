@@ -52,9 +52,9 @@ Phases, each on lines of its own:
    its bound; the compaction's two kernels by torch.profiler; the 100K
    arena's two placements in turns; K2 on the DEFCON-like, random and
    mixed survivors and the CSR walk on the big corpus's (batched and by
-   torch.profiler, with the grid and the arena bytes resident in shared
-   memory, and on the one survivor whose match is longest alone: the
-   chain floor), K2 with less of its arena resident; K3 on the all-match, mixed and random corpora (batched and by
+   torch.profiler, with the grid and the bytes of K2's image of the tables
+   resident in shared memory, and on the one survivor whose match is
+   longest alone: the chain floor), K2 with less of its image resident; K3 on the all-match, mixed and random corpora (batched and by
    torch.profiler, with its bound, the arena words resident in shared
    memory and the tiles walked); match_device end to end on every corpus
    with the device's busy share of it, and the all-match corpus with the
@@ -130,7 +130,8 @@ Phases, each on lines of its own:
    K3 walks no block), no ``aten::nonzero``, the call again under
    ``torch.cuda.set_sync_debug_mode("error")``, K2's walk steps and lane
    slots of one call (the device counters ``walk_steps``, ``walk_slots``)
-   beside the host's recount of the steps, K2's time on its
+   beside the host's recount of the steps, and the call counted whole
+   (``walk.whole_calls``: K2's image resident whole), K2's time on its
    survivors as in phase 8 and on the first one and two survivors a lane
    of its grid, and the e2e with the card's busy share; the survivor counts of the DEFCON-like and
    virus-dense corpora against the reference's records; the reduce on
@@ -160,7 +161,8 @@ Phases, each on lines of its own:
    three sizes and ``tools/cli.py match --stream`` against the whole
    buffer and golden; two rulesets of the F1 regime
    (``rulesets.f1_regime``, 20,000 and 30,000 patterns of 3-8 bytes,
-   nothing resident in shared memory) against ``golden.match_edges_batch``
+   nothing of the arena resident for K3, the entry table of K2's image
+   for K2) against ``golden.match_edges_batch``
    in full.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
@@ -974,20 +976,25 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     del again, res, want
     # K2's walk steps and lane slots, counted on the card by one program
     # call, against the plain walk's iterations over the same survivors
-    before = trace.device_counters()
+    before, calls = trace.device_counters(), trace.counters()
     eng.match_device(d)
     after = trace.device_counters()
     steps, slots = (after[k] - before[k] for k in ("walk_steps",
                                                    "walk_slots"))
+    whole, split = (trace.counters()[k] - calls[k]
+                    for k in ("walk.whole_calls", "walk.split_calls"))
     kpos = compact.compact_plain(bits, counts,
                                  pipeline.threshold(eng._walk, block))
     want_steps = walk.walk_steps_plain(d, n, kpos, eng._walk)
     assert steps == want_steps, (steps, want_steps)
     assert slots % 32 == 0 and slots >= steps, (steps, slots)
+    assert (whole, split) == (1, 0), (whole, split)
     print(f"walk counters virus_dense_worst: walk_steps {steps} (host "
           f"recount {want_steps}, equal), walk_slots {slots}; "
           f"{steps / kpos.numel():.3f} steps a survivor over "
-          f"{kpos.numel()} survivors, lanes busy {100 * steps / slots:.2f}%")
+          f"{kpos.numel()} survivors, lanes busy {100 * steps / slots:.2f}%; "
+          f"K2's image whole in shared memory: walk.whole_calls {whole}, "
+          f"walk.split_calls {split}")
     del kpos
 
     pos, cnt = compact.compact(bits, counts,
@@ -1000,7 +1007,8 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     print(f"time K2 walk_kernel virus_dense_worst ({n2} survivors, {deep2} "
           f"deep matches; grid {grid2} CTAs x 1024 threads, "
           f"{min(grid2, n2)} in use; {4 * plan2} of "
-          f"{4 * eng._walk.arena.numel()} arena bytes resident): {ms2:.4f} "
+          f"{4 * walk.image(eng._walk).arena.numel()} image bytes resident): "
+          f"{ms2:.4f} "
           f"ms batched, {prof2:.4f} ms profiler (plain {plain2:.3f} ms, "
           f"bound {bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
     # K2 by survivors a lane: the first 1x and 2x the grid's lanes, all
@@ -1075,8 +1083,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
     the count kernel against its plain version, ``torch.count_nonzero`` and
     its bound; ``Matcher.stream`` over 16 MB of the DEFCON-like corpus in
     chunks of three sizes and ``tools/cli.py match --stream``; two rulesets
-    of the F1 regime (``rulesets.f1_regime``: nothing resident in shared
-    memory) against ``golden.match_edges_batch``. -> the count kernel's
+    of the F1 regime (``rulesets.f1_regime``: nothing of the arena resident
+    for K3, the entry table of K2's image for K2) against ``golden.match_edges_batch``. -> the count kernel's
     row's numbers."""
     import contextlib
     import io
@@ -1120,7 +1128,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
     nsteps, k2_res = walk.launch_plan(eng._walk, dev)
     _, look, tcap, k3_res = block_walk.launch_plan(
         eng._walk, npad // block_walk.CHUNK, dev)
-    st, wt = eng._sieve, eng._walk
+    st, wt, k2i = eng._sieve, eng._walk, walk.image(eng._walk)
     i32 = dict(dtype=torch.int32, device=dev)
     match, bits = torch.empty(npad, **i32), torch.empty(npad // 32, **i32)
     counts, offsets = torch.zeros(nblocks + 1, **i32), torch.empty(
@@ -1151,8 +1159,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
                          offsets.data_ptr(), nblocks, block, thresh,
                          pos.data_ptr(), stream)
         lib.pfac_walk(0, d.data_ptr(), n, pos.data_ptr(),
-                      total, cap, wt.arena.data_ptr(),
-                      wt.arena.numel(), k2_res, wt.desc.data_ptr(), nsteps,
+                      total, cap, k2i.arena.data_ptr(),
+                      k2i.arena.numel(), k2_res, k2i.desc.data_ptr(), nsteps,
                       match.data_ptr(), stream)
 
     mt.match_device(d)
@@ -1435,7 +1443,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
     print(f"cli match --stream on the card: {head[0]}, its output equal to "
           f"the whole-buffer CLI's and its first 50 matches to golden")
 
-    # two rulesets of the F1 regime: nothing resident in shared memory
+    # two rulesets of the F1 regime: nothing of the arena resident for K3,
+    # the entry table of K2's image for K2
     for seed, k, nb in ((20_000, 20_000, 2 * MB), (30_000, 30_000, 4 * MB)):
         t0 = time.perf_counter()
         pats, fhost = rulesets.f1_regime(seed, k, nb)
@@ -1449,7 +1458,9 @@ def program_phase(dev, name_limit, corpora) -> dict:
         k2r = walk.launch_plan(e._walk, dev)[1]
         k3r = block_walk.launch_plan(e._walk, npad_for(nb) // block_walk.CHUNK,
                                      dev)[3]
-        assert k2r == k3r == 0, (k2r, k3r)
+        # K2's image keeps its entry tables, K3 nothing of the arena
+        assert k2r in walk.table_ends(walk.image(e._walk))[:2] and k3r == 0, (
+            k2r, k3r)
         ms = cuda_ms(lambda: mf.match_device(fd))
         print(f"f1 regime {k} patterns of 3-8 bytes (seed {seed}) over "
               f"{nb // MB} MB: equal in full to pipeline.run and to "
@@ -1715,8 +1726,9 @@ def main() -> int:
         engf._walk, npad_for(F1_BYTES) // block_walk.CHUNK, dev)[3]
     print(f"f1 ruleset: {len(fpats)} patterns, walk arena "
           f"{engf._walk.arena.numel() * 4} bytes, entry tables "
-          f"{4 * walk.table_ends(engf._walk)[1]} bytes; arena words resident "
-          f"in shared memory: K2 {f1_k2}, K3 {f1_k3}; set-up "
+          f"{4 * walk.table_ends(engf._walk)[1]} bytes; words resident in "
+          f"shared memory: K2 {f1_k2} of its image's "
+          f"{walk.image(engf._walk).arena.numel()}, K3 {f1_k3}; set-up "
           f"{time.perf_counter() - t0:.1f} s")
 
     # 6. the main path on every corpus, counted
@@ -1930,19 +1942,22 @@ def main() -> int:
         print(f"time K2 walk_kernel {nm} ({n2} survivors, {deep2} deep "
               f"matches; grid {grid2} CTAs x 1024 threads, "
               f"{min(grid2, n2)} in use; {4 * plan2} of "
-              f"{4 * e._walk.arena.numel()} arena bytes resident): {ms2:.4f} "
+              f"{4 * walk.image(e._walk).arena.numel()} image bytes "
+              f"resident): {ms2:.4f} "
               f"ms batched, {prof2:.4f} ms profiler (plain "
               f"{'not run' if plain2 is None else f'{plain2:.3f} ms'}, bound "
               f"{bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
     del rbase, rbits, rcounts, k2_inputs
-    # K2 on the DEFCON-like survivors with less of the arena resident: none,
-    # the entry tables, K3's prefix, and its own plan (what a deeper
-    # residency could still win)
+    # K2 on the DEFCON-like survivors with less of its image resident:
+    # none, the entry tables, the tables the arena's words would hold
+    # beside the descriptor rows, and its own plan (the whole image)
     key = ("k2_plan", dev.index)
     plan = walk.launch_plan(eng._walk, dev)
-    sweep = {"none": 0, "entry": walk.table_ends(eng._walk)[1],
-             "K3's prefix": block_walk.launch_plan(
-                 eng._walk, npad // block_walk.CHUNK, dev)[3],
+    ends = walk.table_ends(walk.image(eng._walk))
+    arena_tables = walk.table_ends(eng._walk).index(walk.resident_words(
+        eng._walk, sieve.SMEM_LIMIT - walk.fixed_smem_bytes(plan[0]))) + 1
+    sweep = {"none": 0, "entry": ends[1],
+             "the arena's prefix": ends[arena_tables - 1],
              "K2's plan": plan[1]}
     parts = []
     try:
@@ -1957,7 +1972,7 @@ def main() -> int:
             parts.append(f"{nm} {4 * words} B {prof:.4f} ms")
     finally:
         eng._walk.derived[key] = plan
-    print(f"time K2 walk_kernel defcon_like by resident arena (profiler): "
+    print(f"time K2 walk_kernel defcon_like by resident image (profiler): "
           f"{'; '.join(parts)}  [{name_limit}]")
     del out
     k2_ms, _, k2_plain, k2_bound, _, _, _ = k2["defcon_like"]

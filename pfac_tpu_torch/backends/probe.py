@@ -105,10 +105,16 @@ def pack(probes: list[FlatProbe | None], device,
         rows.append((p.mul, p.lg_b, p.lg_r, put(p.disp), put(p.keys),
                      put(p.vals), 1, 0))
     arena = np.concatenate(parts) if parts else np.zeros(1, np.int32)
-    desc = np.array([[_i32(r[0])] + list(r[1:]) for r in rows],
-                    dtype=np.int32).reshape(-1, DESC_WORDS)
     return Packed(arena=torch.from_numpy(arena).to(device),
-                  desc=torch.from_numpy(desc).to(device), rows=rows)
+                  desc=torch.from_numpy(desc_array(rows)).to(device),
+                  rows=rows)
+
+
+def desc_array(rows: list[tuple[int, ...]]) -> np.ndarray:
+    """The descriptor rows as the kernels read them: int32[len(rows),
+    DESC_WORDS], the multiplier's uint32 bits as int32."""
+    return np.array([[_i32(r[0])] + list(r[1:]) for r in rows],
+                    dtype=np.int32).reshape(-1, DESC_WORDS)
 
 
 # --------------------------------------------------------------------------

@@ -59,6 +59,7 @@ struct Spec {
   int32_t tier;
   int32_t thresh, capacity;                    // the compaction
   int32_t walk_words, walk_nsteps, look, tile_cap, k3_resident, k2_resident;
+  int32_t k2_words;                            // K2's image of the tables
   int32_t csr_nsteps;
   int32_t reduce, count;                       // 0 or 1
   int64_t shard_bytes, bits_at, counts_at, offsets_at, pos_at;
@@ -68,6 +69,8 @@ struct Spec {
   const void* sieve_desc;
   const void* walk_arena;
   const void* walk_desc;
+  const void* k2_arena;   // K2's image: values in 16 bits (backends/walk.py)
+  const void* k2_desc;
   const void* csr_arena;
   const void* csr_desc;
   void* counters;     // int64[5]: survivors, dense blocks (compact_scan),
@@ -155,8 +158,8 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
       const void* total = offsets + 4LL * sp.nblocks;   // on the device
       if (sp.tier == kWalkTables)
         err = pfac::walk_launch(sp.device, data, n, pos, total, sp.capacity,
-                                sp.walk_arena, sp.walk_words, sp.k2_resident,
-                                sp.walk_desc, sp.walk_nsteps, match,
+                                sp.k2_arena, sp.k2_words, sp.k2_resident,
+                                sp.k2_desc, sp.walk_nsteps, match,
                                 walk_counts, kernel());
       else
         err = pfac::csr_walk_launch(sp.device, data, n, pos, total,

@@ -17,12 +17,19 @@ namespace pfac {
 constexpr uint32_t kBulkMax = 1u << 15;       // bytes per bulk copy
 
 // Arena words: shared memory below `resident`, L1/L2 from there on.
+// half(h) reads the 16-bit half-word h (the low half of word h / 2 where h
+// is even), as K2's image keeps its values.
 struct SplitTab {
   const uint32_t* s;
   const int32_t* __restrict__ g;
   uint32_t resident;
   __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
     return i < resident ? s[i] : static_cast<uint32_t>(__ldg(g + i));
+  }
+  __device__ __forceinline__ uint32_t half(uint32_t h) const {
+    return h < 2 * resident
+               ? reinterpret_cast<const uint16_t*>(s)[h]
+               : __ldg(reinterpret_cast<const unsigned short*>(g) + h);
   }
 };
 
@@ -31,6 +38,9 @@ struct SmemTab {
   const uint32_t* s;
   __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
     return s[i];
+  }
+  __device__ __forceinline__ uint32_t half(uint32_t h) const {
+    return reinterpret_cast<const uint16_t*>(s)[h];
   }
 };
 

@@ -42,7 +42,9 @@ median over 20 calls) and of each other kernel, the call's CUDA-event ms,
 K2 alone through its wrapper on the same survivors (``k2_batched_ms``:
 batches of 10 ``walk.walk`` calls), a fingerprint, and, on a tree that
 counts them, the walk steps and lane slots of one call (``walk_steps``,
-``walk_slots``; ``null`` elsewhere).
+``walk_slots``) and whether its K2 held its image of the tables whole in
+shared memory (``whole_calls``, ``split_calls``: 1 or 0; ``null``
+elsewhere).
 
 ``--backend xla`` times the lockstep walker instead
 (``Matcher(backend="xla")``, which older trees have too):
@@ -356,13 +358,16 @@ def k2_worker(tree: str, dev) -> None:
                                                     dense), ("text", text)):
         n = d.shape[0]
         res = m.match_device(d)
-        steps = slots = None
+        steps = slots = whole = split = None
         if counted:
-            before = trace.device_counters()
+            before, calls = trace.device_counters(), trace.counters()
             m.match_device(d)
-            after = trace.device_counters()
+            after, calls_after = trace.device_counters(), trace.counters()
             steps, slots = (after[k] - before[k]
                             for k in ("walk_steps", "walk_slots"))
+            keys = ("walk.whole_calls", "walk.split_calls")
+            if any(k in calls_after for k in keys):
+                whole, split = (calls_after[k] - calls[k] for k in keys)
         kernels = _kernels(lambda: m.match_device(d), reps=20)
         k2 = next((v for k, v in kernels.items()
                    if "walk_kernel<" in k and "block_walk" not in k), None)
@@ -376,6 +381,7 @@ def k2_worker(tree: str, dev) -> None:
                                                    eng._walk, cnt),
                                  batch=10),
             "survivors": int(cnt), "walk_steps": steps, "walk_slots": slots,
+            "whole_calls": whole, "split_calls": split,
             "fingerprint": _fingerprint(res, n), "clocks": _clocks()}),
             flush=True)
         del res, base, bits, counts, pos, cnt

@@ -231,7 +231,8 @@ class Matcher:
     # --------------------------------------------------------- introspect
     def counters(self) -> Counter:
         """The port's counters (``trace.counters``: launches, positions
-        scanned, programs built, set-up seconds, span totals while profiled)
+        scanned, K2's whole and split calls, programs built, set-up
+        seconds, span totals while profiled)
         and the device counters (``survivors``, ``blocks_escaped``,
         ``short_probes``, ``walk_steps``, ``walk_slots``), read now. They
         are the process's: every handle adds to them. A key never counted

@@ -524,20 +524,26 @@ def test_walkers_count_contract(dev, offset):
             assert (k == 0) == torch.equal(out_k, match), name
 
 
-@pytest.mark.parametrize("which", ["none", "entry", "plan", "all"])
+@pytest.mark.parametrize("which", ["none", "entry", "prefix", "plan", "all"])
 def test_walk_resident_prefixes(dev, which, monkeypatch):
-    # K2 with none, the entry tables, the plan's prefix and the whole arena
-    # in shared memory (the Snort arena does not fit whole: a small one)
+    # K2 with none, the entry tables, the prefix of the tables the arena's
+    # words would have held, the plan (the Snort-like set's image whole)
+    # and a small set's whole image in shared memory
     pats = (_ruleset(4)[0] if which == "all"
             else rulesets.snort_like_patterns())
     eng = pt.Matcher(pats, device=dev)._engine()
     tabs = eng._walk
+    img = walk.image(tabs)
     nsteps, planned = walk.launch_plan(tabs, dev)
-    words = tabs.arena.numel()
-    resident = {"none": 0, "entry": walk.table_ends(tabs)[1],
+    words = img.arena.numel()
+    budget = sieve.SMEM_LIMIT - walk.fixed_smem_bytes(nsteps)
+    arena_tables = walk.table_ends(tabs).index(
+        walk.resident_words(tabs, budget)) + 1
+    resident = {"none": 0, "entry": walk.table_ends(img)[1],
+                "prefix": walk.table_ends(img)[arena_tables - 1],
                 "plan": planned, "all": words}[which]
-    assert (planned == words) == (which == "all")
-    assert which != "plan" or 0 < planned < words
+    assert planned == words
+    assert which != "prefix" or 0 < resident < words
     monkeypatch.setattr(walk, "launch_plan", lambda t, d: (nsteps, resident))
     rng = np.random.default_rng(8)
     n = 4 << 20
@@ -573,7 +579,9 @@ def test_f1_entry_tables_beyond_shared_memory(dev):
                                   sieve.BLOCK)
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    assert walk.launch_plan(eng._walk, dev)[1] == 0
+    # K2's image keeps its entry tables; nothing of the arena fits K3
+    img = walk.image(eng._walk)
+    assert walk.launch_plan(eng._walk, dev)[1] in walk.table_ends(img)[:2]
     assert block_walk.launch_plan(eng._walk, npad // block_walk.CHUNK,
                                   dev)[3] == 0
     esc, _ = _k3_equal(data, n, eng)
@@ -1581,6 +1589,62 @@ def test_the_walk_wrapper_counts_nothing(dev):
     m.match_device(d)
     assert trace.device_counters()["walk_steps"] == walk.walk_steps_plain(
         d, n, _k2_positions(eng, d), eng._walk)
+
+
+@pytest.mark.parametrize("corpus", ["virus_dense_worst", "text"])
+@pytest.mark.parametrize("plan", ["whole", "split"])
+def test_k2_image_whole_and_split(dev, plan, corpus):
+    # K2 in both instantiations, by the ruleset and no switch: the
+    # Snort-like set's image fits shared memory whole, the F1 set's does
+    # not (its entry table alone is resident). On 8 MB of the set's own
+    # patterns concatenated and on text with 1.5% planted copies: K2
+    # through its wrapper and inside a program equals the plain walk, its
+    # walk steps equal the host's recount, and every program call counts
+    # as whole or split by the plan
+    pats = (rulesets.snort_like_patterns() if plan == "whole"
+            else _f1_patterns())
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    resident = walk.launch_plan(eng._walk, dev)[1]
+    words = walk.image(eng._walk).arena.numel()
+    assert (resident == words) == (plan == "whole") and resident > 0
+    rng = np.random.default_rng(37)
+    n = (8 << 20) - 5
+    host = (rulesets.pattern_stream(rng, pats, n)
+            if corpus == "virus_dense_worst"
+            else rulesets.planted_text(rng, pats, n, 0.015))
+    d = torch.from_numpy(host).to(dev)
+    npad = npad_for(n)
+    match, bits, counts = sieve.sieve(d, n, npad, eng._sieve)
+    thresh = pipeline.threshold(eng._walk, eng.tile_rows * 128)
+    pos, cnt = compact.compact(bits, counts, thresh)
+    exact = compact.compact_plain(bits, counts, thresh)
+    # the pattern stream: enough survivors that every CTA stages what its
+    # plan holds (kStageMin = 256 a CTA in csrc/walk.cu); the text: a few
+    # thousand, so a CTA stages a split image's prefix not at all
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (exact.numel() >= 256 * sms) == (corpus == "virus_dense_worst")
+    assert exact.numel() > 1000
+    out_k, out_p = match.clone(), match.clone()
+    walk.walk(d, n, pos, out_k, eng._walk, cnt)
+    walk.walk_plain(d, n, exact, out_p, eng._walk)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and not torch.equal(out_k, match)
+    m.match_device(d)
+    trace.reset()
+    calls = 3
+    for _ in range(calls):
+        res = m.match_device(d)
+    c = m.counters()
+    assert torch.equal(res, pipeline.run(d, n, npad, eng._sieve, eng._walk,
+                                         plain=True))
+    assert c["walk_steps"] == calls * walk.walk_steps_plain(d, n, exact,
+                                                            eng._walk)
+    assert c["walk_slots"] % 32 == 0
+    assert c["walk_steps"] <= c["walk_slots"] < 32 * c["walk_steps"]
+    key, other = (("walk.whole_calls", "walk.split_calls") if plan == "whole"
+                  else ("walk.split_calls", "walk.whole_calls"))
+    assert c[key] == c["launch.program"] == calls and c[other] == 0
 
 
 def test_a_new_length_builds_one_program(dev):

@@ -5,16 +5,28 @@ reference's Pallas walker in interpret mode and its host oracle, bit-exact
 The reference walker runs as ``build_walker(..., interpret=True)`` without
 the sieve tables, so it reports matches of >= 4 bytes only; the port's walk
 writes exactly those into a zeroed result.
+
+K2's image of the tables (``walk.image``: values in 16 bits) holds the
+arena's tables word for word, refuses a value of 2^16 or more, fits the
+Snort-like set whole in K2's shared memory, keeps a longer prefix than the
+arena for sets that do not fit, and, walked on the host as the kernel reads
+it (``walk.image_walk_plain``), equals ``walk_plain``.
 """
+import bisect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import pfac_tpu_torch as pt
 from pfac_tpu.backends import pallas_walk as W
-from pfac_tpu_torch.backends import walk
+from pfac_tpu_torch.backends import sieve, walk
+from pfac_tpu_torch.backends.probe import Packed, desc_array
+from pfac_tpu_torch.backends.sieve_matcher import npad_for
 from pfac_tpu_torch.backends.walk_tables import build_walk_tables, walk_oracle
 from pfac_tpu_torch.core import Automaton
+from pfac_tpu_torch.experiments import rulesets
 
 
 def _compare(pats, data: bytes, positions=None, n=None):
@@ -190,3 +202,157 @@ def test_matcher_on_a_pattern_stream_equals_golden():
     assert 0.02 < pos.numel() / n < 0.08, pos.numel()
     steps = walk.walk_steps_plain(data, n, pos, eng._walk)
     assert 1.5 < steps / pos.numel() < 20, steps / pos.numel()
+
+
+# --------------------------------------------------------------------------
+# K2's image of the tables
+# --------------------------------------------------------------------------
+
+def _f1_patterns():
+    """ROADMAP.md's F1 ruleset: 17,000 random 6-byte patterns (seed
+    17000), whose entry table alone outgrows the arena's shared memory."""
+    rng = np.random.default_rng(17000)
+    return [bytes(rng.integers(0, 256, size=6, dtype=np.uint8))
+            for _ in range(17000)]
+
+
+IMAGE_SETS = {
+    "snort": rulesets.snort_like_patterns,
+    "f1": _f1_patterns,
+    "steps": lambda: STEP_PATS,
+    "snort_3000": lambda: rulesets.snort_like_patterns(seed=7, k=3000),
+}
+
+
+@pytest.fixture(scope="module")
+def walk_sets():
+    return {}
+
+
+def _tabs(walk_sets, name) -> Packed:
+    if name not in walk_sets:
+        walk_sets[name] = pt.Matcher(IMAGE_SETS[name](),
+                                     device="cpu")._engine()
+    return walk_sets[name]._walk
+
+
+CARD = torch.device("cuda", 0)       # K2's plan reads the device's index only
+
+
+def _budget(tabs: Packed) -> int:
+    return sieve.SMEM_LIMIT - walk.fixed_smem_bytes(walk.steps_of(tabs))
+
+
+@pytest.mark.parametrize("name", ["snort", "f1", "steps"])
+def test_image_holds_the_arenas_tables(walk_sets, name):
+    # the same rows in the same order: displacements and keys word for
+    # word, values as half-words equal to the arena's words, every array
+    # on 16 bytes, each table ending where the image's table ends say
+    tabs = _tabs(walk_sets, name)
+    img = walk.image(tabs)
+    assert walk.image(tabs) is img                # built once, kept
+    a = tabs.arena.numpy()
+    w = img.arena.numpy()
+    h = w.view(np.uint16)
+    assert len(img.rows) == len(tabs.rows)
+    assert np.array_equal(img.desc.numpy(), desc_array(img.rows))
+    want_bytes, ends = 0, []
+    for r, q in zip(tabs.rows, img.rows):
+        if not r[6]:
+            assert q == (0, 0, 0, -1, -1, -1, 0, 0)
+            continue
+        assert q[:3] == r[:3] and q[6:] == r[6:]
+        slots = 1 << r[2]
+        if r[3] < 0:
+            assert q[3] == -1
+        else:
+            nb = 1 << r[1]
+            assert q[3] % 4 == 0
+            assert np.array_equal(w[q[3]:q[3] + nb], a[r[3]:r[3] + nb])
+            want_bytes += -(-4 * nb // 16) * 16
+        assert q[4] % 4 == 0 and q[5] % 8 == 0
+        assert np.array_equal(w[q[4]:q[4] + slots], a[r[4]:r[4] + slots])
+        assert np.array_equal(h[q[5]:q[5] + slots].astype(np.int64),
+                              a[r[5]:r[5] + slots].astype(np.int64))
+        want_bytes += 4 * slots + -(-2 * slots // 16) * 16
+        ends.append(-(-(q[5] + slots) // 8) * 4)
+    assert walk.table_ends(img) == ends
+    assert ends[-1] == w.size and 4 * w.size == want_bytes
+
+
+def test_image_refuses_a_value_past_16_bits():
+    tabs = build_walk_tables(Automaton.from_patterns(STEP_PATS)).to_device(
+        "cpu")
+    row = tabs.rows[2]                            # step 0's main table
+    for value, ok in ((0xFFFF, True), (1 << 16, False), (-1, False)):
+        arena = tabs.arena.clone()
+        arena[row[5] + 1] = value
+        img_of = lambda: walk.image(Packed(arena=arena, desc=tabs.desc,
+                                           rows=tabs.rows))
+        if ok:
+            img = img_of()
+            h = img.arena.numpy().view(np.uint16)
+            assert int(h[img.rows[2][5] + 1]) == value
+        else:
+            with pytest.raises(ValueError, match="16-bit"):
+                img_of()
+
+
+def test_snort_image_is_whole_in_shared_memory(walk_sets):
+    # the arena's 260,832 B outgrew K2's budget beside its descriptor
+    # rows, and the tables of depth >= 32 were read through L1/L2; the
+    # image's 199,856 B fit whole
+    tabs = _tabs(walk_sets, "snort")
+    img = walk.image(tabs)
+    nsteps = walk.steps_of(tabs)
+    assert 4 * tabs.arena.numel() == 260_832
+    assert 4 * img.arena.numel() == 199_856
+    assert _budget(tabs) == 227_792
+    assert walk.launch_plan(tabs, CARD) == (nsteps, img.arena.numel())
+    assert walk.fixed_smem_bytes(nsteps) + 199_856 <= sieve.SMEM_LIMIT
+    old = walk.resident_words(tabs, _budget(tabs))
+    assert old == 56_776 and walk.table_ends(tabs).index(old) + 1 == 44
+
+
+@pytest.mark.parametrize("name", ["f1", "snort_3000"])
+def test_overflowing_image_keeps_a_longer_prefix(walk_sets, name):
+    # where the image does not fit whole, K2 keeps at least as many whole
+    # tables as the arena's prefix would have held, within its budget
+    tabs = _tabs(walk_sets, name)
+    img = walk.image(tabs)
+    budget = _budget(tabs)
+    resident = walk.launch_plan(tabs, CARD)[1]
+    assert 0 < resident < img.arena.numel() and 4 * resident <= budget
+    tables = bisect.bisect_right(walk.table_ends(img), resident)
+    old = bisect.bisect_right(walk.table_ends(tabs),
+                              walk.resident_words(tabs, budget))
+    assert tables >= old
+    if name == "snort_3000":
+        assert old > 0 and tables > old
+
+
+@pytest.mark.parametrize("corpus", ["pattern_stream", "planted_text"])
+def test_image_walk_equals_walk_plain(walk_sets, corpus):
+    # 1 MiB of the Snort-like set's own patterns concatenated (the
+    # virus-dense worst case) and of text with 1.5% planted copies: K1's
+    # survivors walked over the image as the kernel reads it equal the
+    # arena's plain walk, and so do a count's first positions
+    tabs = _tabs(walk_sets, "snort")
+    pats = IMAGE_SETS["snort"]()
+    rng = np.random.default_rng(21)
+    n = 1 << 20
+    host = (rulesets.pattern_stream(rng, pats, n) if corpus == "pattern_stream"
+            else rulesets.planted_text(rng, pats, n, 0.015))
+    data = torch.from_numpy(host.copy())
+    eng = walk_sets["snort"]
+    _, bits, _ = sieve.sieve_plain(data, n, npad_for(n), eng._sieve)
+    pos = torch.nonzero(sieve.unpack_bits(bits)[:n]).flatten().to(
+        torch.int32)
+    assert pos.numel() > 500
+    img = walk.image(tabs)
+    for count in (None, torch.tensor([pos.numel() // 3], dtype=torch.int32)):
+        want = torch.zeros(n, dtype=torch.int32)
+        got = torch.zeros(n, dtype=torch.int32)
+        walk.walk_plain(data, n, pos, want, tabs, count)
+        walk.image_walk_plain(data, n, pos, got, img, count)
+        assert torch.equal(got, want) and int((want > 0).sum()) > 100
