@@ -52,10 +52,11 @@ Phases, each on lines of its own:
    its bound; the compaction's two kernels by torch.profiler; the 100K
    arena's two placements in turns; K2 on the DEFCON-like, random and
    mixed survivors and the CSR walk on the big corpus's (batched and by
-   torch.profiler, with the grid and the bytes of K2's image of the tables
+   torch.profiler, with the grid and the bytes of the walk tables
    resident in shared memory, and on the one survivor whose match is
-   longest alone: the chain floor), K2 with less of its image resident; K3 on the all-match, mixed and random corpora (batched and by
-   torch.profiler, with its bound, the arena words resident in shared
+   longest alone: the chain floor), K2 with less of its tables resident;
+   K3 on the all-match, mixed and random corpora (batched and by
+   torch.profiler, with its bound, the table words resident in shared
    memory and the tiles walked); match_device end to end on every corpus
    with the device's busy share of it, and the all-match corpus with the
    escape disarmed; torch.profiler breakdowns (a kernel's profiler time is
@@ -131,7 +132,7 @@ Phases, each on lines of its own:
    ``torch.cuda.set_sync_debug_mode("error")``, K2's walk steps and lane
    slots of one call (the device counters ``walk_steps``, ``walk_slots``)
    beside the host's recount of the steps, and the call counted whole
-   (``walk.whole_calls``: K2's image resident whole), K2's time on its
+   (``walk.whole_calls``: K2's tables resident whole), K2's time on its
    survivors as in phase 8 and on the first one and two survivors a lane
    of its grid, and the e2e with the card's busy share; the survivor counts of the DEFCON-like and
    virus-dense corpora against the reference's records; the reduce on
@@ -143,8 +144,7 @@ Phases, each on lines of its own:
    kernels as a CUDA graph, built once for each (device, npad); every
    ``match_device`` of the phases above already went through it): the
    host's time of one single-device call split (allocations, ctypes calls,
-   Python) through ``pipeline.run`` and through the program, and the
-   program's plan launched node by node from C beside the graph; on every
+   Python) through ``pipeline.run`` and through the program; on every
    corpus of phase 6 and ``virus_dense_worst`` the program's result equal
    in full to ``pipeline.run``'s and to golden on 4 MB, one program launch
    and each kernel of the tier once a call, no ``aten::nonzero``; the first
@@ -161,8 +161,8 @@ Phases, each on lines of its own:
    three sizes and ``tools/cli.py match --stream`` against the whole
    buffer and golden; two rulesets of the F1 regime
    (``rulesets.f1_regime``, 20,000 and 30,000 patterns of 3-8 bytes,
-   nothing of the arena resident for K3, the entry table of K2's image
-   for K2) against ``golden.match_edges_batch``
+   nothing of the walk tables resident for K3, their entry table for K2)
+   against ``golden.match_edges_batch``
    in full.
 
 Then one JSON line of per-kernel results (every kernel of the main path,
@@ -993,7 +993,7 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
           f"recount {want_steps}, equal), walk_slots {slots}; "
           f"{steps / kpos.numel():.3f} steps a survivor over "
           f"{kpos.numel()} survivors, lanes busy {100 * steps / slots:.2f}%; "
-          f"K2's image whole in shared memory: walk.whole_calls {whole}, "
+          f"K2's tables whole in shared memory: walk.whole_calls {whole}, "
           f"walk.split_calls {split}")
     del kpos
 
@@ -1007,7 +1007,7 @@ def entry_points_phase(dev, name_limit, walker_time, floor_text) -> None:
     print(f"time K2 walk_kernel virus_dense_worst ({n2} survivors, {deep2} "
           f"deep matches; grid {grid2} CTAs x 1024 threads, "
           f"{min(grid2, n2)} in use; {4 * plan2} of "
-          f"{4 * walk.image(eng._walk).arena.numel()} image bytes resident): "
+          f"{4 * eng._walk.arena.numel()} table bytes resident): "
           f"{ms2:.4f} "
           f"ms batched, {prof2:.4f} ms profiler (plain {plain2:.3f} ms, "
           f"bound {bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
@@ -1068,8 +1068,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
     """Phase 13: one program launch a call (``backends/program.py``, a CUDA
     graph built once for each (device, npad)). The host's time of one
     single-device call split through ``pipeline.run`` (the per-kernel
-    wrappers) and through the program (and the program's plan launched node
-    by node from C, ``pfac_program_launch_direct``); on every corpus of
+    wrappers) and through the program; on every corpus of
     phase 6 and ``virus_dense_worst`` the program's result equal in full to
     ``pipeline.run``'s and to golden on a slice, one program launch and
     each kernel once a call, no ``aten::nonzero``; a first call at a new
@@ -1083,9 +1082,9 @@ def program_phase(dev, name_limit, corpora) -> dict:
     the count kernel against its plain version, ``torch.count_nonzero`` and
     its bound; ``Matcher.stream`` over 16 MB of the DEFCON-like corpus in
     chunks of three sizes and ``tools/cli.py match --stream``; two rulesets
-    of the F1 regime (``rulesets.f1_regime``: nothing of the arena resident
-    for K3, the entry table of K2's image for K2) against ``golden.match_edges_batch``. -> the count kernel's
-    row's numbers."""
+    of the F1 regime (``rulesets.f1_regime``: nothing of the walk tables
+    resident for K3, their entry table for K2) against
+    ``golden.match_edges_batch``. -> the count kernel's row's numbers."""
     import contextlib
     import io
     import os
@@ -1128,7 +1127,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
     nsteps, k2_res = walk.launch_plan(eng._walk, dev)
     _, look, tcap, k3_res = block_walk.launch_plan(
         eng._walk, npad // block_walk.CHUNK, dev)
-    st, wt, k2i = eng._sieve, eng._walk, walk.image(eng._walk)
+    st, wt = eng._sieve, eng._walk
     i32 = dict(dtype=torch.int32, device=dev)
     match, bits = torch.empty(npad, **i32), torch.empty(npad // 32, **i32)
     counts, offsets = torch.zeros(nblocks + 1, **i32), torch.empty(
@@ -1159,8 +1158,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
                          offsets.data_ptr(), nblocks, block, thresh,
                          pos.data_ptr(), stream)
         lib.pfac_walk(0, d.data_ptr(), n, pos.data_ptr(),
-                      total, cap, k2i.arena.data_ptr(),
-                      k2i.arena.numel(), k2_res, k2i.desc.data_ptr(), nsteps,
+                      total, cap, wt.arena.data_ptr(),
+                      wt.arena.numel(), k2_res, wt.desc.data_ptr(), nsteps,
                       match.data_ptr(), stream)
 
     mt.match_device(d)
@@ -1188,9 +1187,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
             torch.empty(g.result_words, **i32),
             torch.empty(g.scratch_bytes, dtype=torch.uint8, device=dev)),
         "its ctypes call (the plan and the graph's launch)":
-            lambda: lib.pfac_program_launch(*args),
-        "the plan launched node by node from C":
-            lambda: lib.pfac_program_launch_direct(*args)}.items()}
+            lambda: lib.pfac_program_launch(*args)}.items()}
     del kept
     py_pipe = split["pipeline.run"] - split["its allocations"] \
         - split["its ctypes launches"]
@@ -1443,8 +1440,8 @@ def program_phase(dev, name_limit, corpora) -> dict:
     print(f"cli match --stream on the card: {head[0]}, its output equal to "
           f"the whole-buffer CLI's and its first 50 matches to golden")
 
-    # two rulesets of the F1 regime: nothing of the arena resident for K3,
-    # the entry table of K2's image for K2
+    # two rulesets of the F1 regime: nothing of the walk tables resident for
+    # K3, their entry table for K2
     for seed, k, nb in ((20_000, 20_000, 2 * MB), (30_000, 30_000, 4 * MB)):
         t0 = time.perf_counter()
         pats, fhost = rulesets.f1_regime(seed, k, nb)
@@ -1458,13 +1455,12 @@ def program_phase(dev, name_limit, corpora) -> dict:
         k2r = walk.launch_plan(e._walk, dev)[1]
         k3r = block_walk.launch_plan(e._walk, npad_for(nb) // block_walk.CHUNK,
                                      dev)[3]
-        # K2's image keeps its entry tables, K3 nothing of the arena
-        assert k2r in walk.table_ends(walk.image(e._walk))[:2] and k3r == 0, (
-            k2r, k3r)
+        # K2 keeps the entry tables, K3 nothing
+        assert k2r in walk.table_ends(e._walk)[:2] and k3r == 0, (k2r, k3r)
         ms = cuda_ms(lambda: mf.match_device(fd))
         print(f"f1 regime {k} patterns of 3-8 bytes (seed {seed}) over "
               f"{nb // MB} MB: equal in full to pipeline.run and to "
-              f"match_edges_batch ({int((got > 0).sum())} matches); arena "
+              f"match_edges_batch ({int((got > 0).sum())} matches); table "
               f"words resident: K2 {k2r}, K3 {k3r}; match_device {ms:.4f} ms;"
               f" set-up {time.perf_counter() - t0:.1f} s  [{name_limit}]")
     print(f"phase 13: {time.perf_counter() - t13:.1f} s")
@@ -1727,8 +1723,8 @@ def main() -> int:
     print(f"f1 ruleset: {len(fpats)} patterns, walk arena "
           f"{engf._walk.arena.numel() * 4} bytes, entry tables "
           f"{4 * walk.table_ends(engf._walk)[1]} bytes; words resident in "
-          f"shared memory: K2 {f1_k2} of its image's "
-          f"{walk.image(engf._walk).arena.numel()}, K3 {f1_k3}; set-up "
+          f"shared memory: K2 {f1_k2} of "
+          f"{engf._walk.arena.numel()}, K3 {f1_k3}; set-up "
           f"{time.perf_counter() - t0:.1f} s")
 
     # 6. the main path on every corpus, counted
@@ -1942,22 +1938,21 @@ def main() -> int:
         print(f"time K2 walk_kernel {nm} ({n2} survivors, {deep2} deep "
               f"matches; grid {grid2} CTAs x 1024 threads, "
               f"{min(grid2, n2)} in use; {4 * plan2} of "
-              f"{4 * walk.image(e._walk).arena.numel()} image bytes "
+              f"{4 * e._walk.arena.numel()} table bytes "
               f"resident): {ms2:.4f} "
               f"ms batched, {prof2:.4f} ms profiler (plain "
               f"{'not run' if plain2 is None else f'{plain2:.3f} ms'}, bound "
               f"{bound2:.5f} ms{floor_text(floor2)})  [{name_limit}]")
     del rbase, rbits, rcounts, k2_inputs
-    # K2 on the DEFCON-like survivors with less of its image resident:
-    # none, the entry tables, the tables the arena's words would hold
-    # beside the descriptor rows, and its own plan (the whole image)
+    # K2 on the DEFCON-like survivors with less of its tables resident:
+    # none, the entry tables, the prefix K3 holds beside its tiles, and its
+    # own plan (the whole tables)
     key = ("k2_plan", dev.index)
     plan = walk.launch_plan(eng._walk, dev)
-    ends = walk.table_ends(walk.image(eng._walk))
-    arena_tables = walk.table_ends(eng._walk).index(walk.resident_words(
-        eng._walk, sieve.SMEM_LIMIT - walk.fixed_smem_bytes(plan[0]))) + 1
+    ends = walk.table_ends(eng._walk)
     sweep = {"none": 0, "entry": ends[1],
-             "the arena's prefix": ends[arena_tables - 1],
+             "K3's prefix": block_walk.launch_plan(
+                 eng._walk, npad // block_walk.CHUNK, dev)[3],
              "K2's plan": plan[1]}
     parts = []
     try:
@@ -1972,7 +1967,7 @@ def main() -> int:
             parts.append(f"{nm} {4 * words} B {prof:.4f} ms")
     finally:
         eng._walk.derived[key] = plan
-    print(f"time K2 walk_kernel defcon_like by resident image (profiler): "
+    print(f"time K2 walk_kernel defcon_like by resident tables (profiler): "
           f"{'; '.join(parts)}  [{name_limit}]")
     del out
     k2_ms, _, k2_plain, k2_bound, _, _, _ = k2["defcon_like"]
@@ -2008,7 +2003,7 @@ def main() -> int:
         k3[nm] = (ms3, plain3, bound3)
         print(f"time K3 block_walk_kernel {nm} {n // MB} MB ({esc3} blocks, "
               f"{tiles3} tiles, {deep3} deep matches; {res3} of "
-              f"{e._walk.arena.numel()} arena words resident, "
+              f"{e._walk.arena.numel()} table words resident, "
               f"{block_walk.fixed_smem_bytes(nst, cap3) + 4 * res3} B of "
               f"shared memory): {ms3:.4f} ms batched, {prof3:.4f} ms profiler "
               f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms)  "

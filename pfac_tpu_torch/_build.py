@@ -84,9 +84,6 @@ _SIGNATURES = {
     # program, data, n, result, scratch, status, nstatus, epoch, stream
     "pfac_program_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_int64,
                             ctypes.c_uint32, _P],
-    # the same, each node launched on its own (a measurement)
-    "pfac_program_launch_direct": [_P, _P, _I, _P, _P, _P, ctypes.c_int64,
-                                   ctypes.c_uint32, _P],
     # program, data[], n[], result, scratch, count_len, stream
     "pfac_program_launch_shards": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
     # program

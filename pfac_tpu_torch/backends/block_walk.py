@@ -17,7 +17,8 @@ dense blocks' tiles of ``CHUNK`` positions and each CTA takes its share, so
 the escape needs no host round trip and a corpus without dense blocks pays
 one pass of the grid over the counts. A tile is walked from shared memory:
 its ``CHUNK`` bytes and :func:`lookahead` more arrive by an asynchronous
-bulk copy, and the walk tables are resident there by depth, as far as
+bulk copy, and the walk tables (as K2 reads them, ``walk_tables.pack_walk``)
+are resident there by depth, as far as
 :func:`resident_words` finds room (down to none: a ruleset whose entry
 tables outgrow the room is walked from L1/L2 whole); deeper tables are read
 through L1/L2.
@@ -110,7 +111,7 @@ def block_walk(data: torch.Tensor, n: int, counts: torch.Tensor,
 
 def launch_plan(tabs: Packed, ntiles: int,
                 device: torch.device) -> tuple[int, int, int, int]:
-    """(nsteps, lookahead, tile-number room, resident arena words) of a K3
+    """(nsteps, lookahead, tile-number room, resident table words) of a K3
     launch over `ntiles` tiles on a CUDA device; kept with the tables. The
     resident words may be 0: every plan fits."""
     key = ("k3_plan", ntiles, device.index)

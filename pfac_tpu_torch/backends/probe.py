@@ -17,8 +17,9 @@ Exact tables store the key of every slot; an empty slot holds a *member*
 key (``chd.build_exact2`` / ``build_exact_wide2``), so key equality alone
 decides a hit. Residual filters store a 16-bit residual per slot instead.
 
-All tables of one kernel live in one int32 arena; each probe is described by
-one row of ``DESC_WORDS`` int32 words:
+All tables of one kernel live in one int32 arena (the walk tables keep
+their values in 16-bit half-words, ``walk_tables.pack_walk``); each probe
+is described by one row of ``DESC_WORDS`` int32 words:
 ``[mul, lg_b, lg_r, disp_off, key_off, val_off, present, 0]``
 (offsets are -1 where the array is absent).
 """
@@ -77,7 +78,8 @@ class Packed:
     arena: torch.Tensor         # int32[words]
     desc: torch.Tensor          # int32[len(rows), DESC_WORDS]
     rows: list[tuple[int, ...]]
-    #: what a wrapper derives from the rows once and keeps (K3's table ends)
+    #: what a wrapper derives from the rows once and keeps (launch plans,
+    #: the walk tables' ends)
     derived: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
 

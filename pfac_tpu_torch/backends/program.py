@@ -26,7 +26,7 @@ scratch block, carved by the geometry's offsets; from torch's allocator,
 so its stream semantics hold and no buffer is shared between calls), one ``ctypes`` call
 and one increment of the program's call count (``trace``: its kernels'
 launches, the positions it scans and, on the walk-table tier, whether its
-K2 holds its whole image, ``walk.whole_calls`` or ``walk.split_calls``,
+K2 holds the whole walk tables, ``walk.whole_calls`` or ``walk.split_calls``,
 are that count times its fixed lists, expanded where the counters are
 read). Its ``compact_scan_kernel`` adds the call's survivors and escaped
 blocks, its K1 the short probes, and its K2 the walk steps and lane slots,
@@ -63,13 +63,13 @@ class Spec(ctypes.Structure):
         "device", "shards", "npad", "block", "nblocks",
         "placement", "sieve_words", "res_off", "tier", "thresh", "capacity",
         "walk_words", "walk_nsteps", "look", "tile_cap", "k3_resident",
-        "k2_resident", "k2_words", "csr_nsteps", "reduce", "count")] + [
+        "k2_resident", "csr_nsteps", "reduce", "count")] + [
         (name, ctypes.c_int64) for name in (
             "shard_bytes", "bits_at", "counts_at", "offsets_at", "pos_at",
             "match_at", "count_at")] + [
         (name, ctypes.c_void_p) for name in (
             "sieve_arena", "sieve_desc", "walk_arena", "walk_desc",
-            "k2_arena", "k2_desc", "csr_arena", "csr_desc", "counters")]
+            "csr_arena", "csr_desc", "counters")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,13 +89,12 @@ class Geometry:
     tier: str                     # one of TIERS
     thresh: int                   # pipeline.threshold
     capacity: int                 # compact.capacity: the positions buffer
-    walk_words: int
+    walk_words: int               # the walk tables K2 and K3 read
     walk_nsteps: int
     look: int                     # K3's plan: lookahead, tile room, resident
     tile_cap: int
     k3_resident: int
-    k2_resident: int              # K2's plan, in words of its image
-    k2_words: int                 # K2's image (walk.image)
+    k2_resident: int              # K2's plan
     csr_nsteps: int
     bits_at: int                  # in a shard's part of the scratch
     counts_at: int                # K1's counts and its tile counter
@@ -138,10 +137,9 @@ def geometry(sieve_tabs: Packed, walk_tabs: Packed | None,
     thresh = pipeline.threshold(walk_tabs, block)
     capacity = compact.capacity(nblocks, block, thresh) if tier != "sieve" \
         else 0
-    walk_nsteps = look = tile_cap = k3_resident = k2_resident = k2_words = 0
+    walk_nsteps = look = tile_cap = k3_resident = k2_resident = 0
     if walk_tabs is not None:
         walk_nsteps, k2_resident = walk.launch_plan(walk_tabs, device)
-        k2_words = walk.image(walk_tabs).arena.numel()
         _, look, tile_cap, k3_resident = block_walk.launch_plan(
             walk_tabs, npad // block_walk.CHUNK, device)
     sizes = {"bits": npad // 8, "counts": 4 * (nblocks + 1)}
@@ -162,7 +160,7 @@ def geometry(sieve_tabs: Packed, walk_tabs: Packed | None,
         capacity=capacity,
         walk_words=0 if walk_tabs is None else walk_tabs.arena.numel(),
         walk_nsteps=walk_nsteps, look=look, tile_cap=tile_cap,
-        k3_resident=k3_resident, k2_resident=k2_resident, k2_words=k2_words,
+        k3_resident=k3_resident, k2_resident=k2_resident,
         csr_nsteps=0 if csr_tabs is None else len(csr_tabs.rows) - 1,
         bits_at=at["bits"], counts_at=at["counts"],
         offsets_at=at.get("offsets", -1), pos_at=at.get("pos", -1),
@@ -184,7 +182,6 @@ class Program:
                  walk_tabs: Packed | None, csr_tabs: Packed | None,
                  device: torch.device):
         self.geo, self.device, self.index = geo, device, device.index or 0
-        k2_image = None if walk_tabs is None else walk.image(walk_tabs)
         self.handle = ctypes.c_void_p()
         self._lock = threading.Lock()   # one build, whatever the threads
         fields = {f.name: getattr(geo, f.name)
@@ -198,11 +195,10 @@ class Program:
             sieve_desc=_ptr(sieve_tabs, "desc"),
             walk_arena=_ptr(walk_tabs, "arena"),
             walk_desc=_ptr(walk_tabs, "desc"),
-            k2_arena=_ptr(k2_image, "arena"), k2_desc=_ptr(k2_image, "desc"),
             csr_arena=_ptr(csr_tabs, "arena"), csr_desc=_ptr(csr_tabs, "desc"))
         self.spec = Spec(**fields)
         # the tables stay alive as long as the program that points at them
-        self._tables = (sieve_tabs, walk_tabs, csr_tabs, k2_image)
+        self._tables = (sieve_tabs, walk_tabs, csr_tabs)
         #: each kernel's launches a call: its tier's once a shard, the
         #: reduce's and the count once
         k = geo.shards
@@ -219,8 +215,8 @@ class Program:
             self.kernels["count_kernel"] = 1
         adds = {"launch.program": 1, "positions": k * geo.npad,
                 **{f"launch.{kn}": c for kn, c in self.kernels.items()}}
-        if geo.tier == "walk":      # K2 with its whole image resident, or not
-            adds["walk.whole_calls" if geo.k2_resident == geo.k2_words
+        if geo.tier == "walk":      # K2 with the whole tables resident, or not
+            adds["walk.whole_calls" if geo.k2_resident == geo.walk_words
                  else "walk.split_calls"] = 1
         self._tally = trace.tally(adds)
 

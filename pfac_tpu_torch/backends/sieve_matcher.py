@@ -14,7 +14,7 @@ import torch
 from .. import trace
 from ..core import Automaton
 from ..status import PfacError, PfacStatus
-from . import pipeline, program, walk
+from . import pipeline, program
 from .csr_tables import CsrTables, build_csr_tables
 from .golden import _as_u8, reduce_result
 from .reduce import reduce_from_dense
@@ -77,8 +77,6 @@ class SieveMatcher:
             self._sieve = self.tables.to_device(self.device)
             self._walk = (None if self.walk_tables is None
                           else self.walk_tables.to_device(self.device))
-            if self._walk is not None and self.device.type == "cuda":
-                walk.image(self._walk)      # K2's own copy of the tables
             self._csr = (None if self.csr_tables is None
                          else self.csr_tables.to_device(self.device))
         #: the CUDA programs (program.py), by (device index, npad, ...), as

@@ -13,19 +13,25 @@ bytes per step: from depth d, ``main`` maps ``state<<16 | b1<<8 | b2`` to the
 depth-(d+2) index, ``odd`` maps ``state<<8 | b1`` to the ID of a pattern of
 length d+1, and ``even`` maps the main key to the ID of a pattern of length
 d+2. Every probe is exact (full key compare); values are 16-bit.
+
+On a device the tables have one layout (:func:`pack_walk`), which K2, K3
+and the plain walkers read: keys and displacements in 32-bit words, values
+in 16-bit half-words.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..core import Automaton, chd
-from .probe import FlatProbe, Packed, pack
+from .probe import FlatProbe, Packed, desc_array
 from .sieve_tables import SieveTables, from_chd, ref_bytes
 
 DEAD = 0xFFFF              # never a valid per-depth index
 _WALK_VMEM_BUDGET = 6 << 20    # reference tier gate (pallas_sieve.py)
+_ALIGN_HALVES = 8          # each array of the layout starts on 16 bytes
 
 
 def wprobe(keys, vals) -> FlatProbe:
@@ -70,11 +76,57 @@ class WalkTables:
 
     def to_device(self, device) -> Packed:
         """Descriptor rows: entry, entry_final, then main/odd/even for each
-        step (step s covers depth 4 + 2s)."""
+        step (step s covers depth 4 + 2s); laid out by :func:`pack_walk`."""
         probes = [self.entry, self.entry_final]
         for s in self.steps:
             probes += [s.main, s.odd, s.even]
-        return pack(probes, device)
+        return pack_walk(probes, device)
+
+
+def pack_walk(probes: list[FlatProbe | None], device) -> Packed:
+    """The walk tables as the walk kernels (K2, K3) and the plain walkers
+    read them: one descriptor row per entry of `probes` (absent ones
+    zeroed); each present table's displacements and keys as 32-bit words
+    and its values as 16-bit half-words, in row order, every array padded
+    to 16 bytes (so a bulk copy takes any prefix of whole tables). A row
+    gives the displacements' and keys' offsets in words and the values' in
+    half-words (``arena``, int32 words; half-word h is the low half of
+    word h // 2 where h is even, as the card reads it);
+    ``derived["table_ends"]`` holds the word at which each table ends.
+    Raises ValueError on a value outside 16 bits, which the encoding
+    forbids (:data:`DEAD`)."""
+    parts: list[np.ndarray] = []
+    off = 0                                   # half-words
+
+    def put(halves: np.ndarray) -> int:
+        nonlocal off
+        pad = -halves.size % _ALIGN_HALVES
+        parts.extend((halves, np.zeros(pad, np.uint16)))
+        start, off = off, off + halves.size + pad
+        return start
+
+    def put_words(a: np.ndarray) -> int:
+        return put(np.ascontiguousarray(a, np.int32).view(np.uint16)) // 2
+
+    rows, ends = [], []
+    for p in probes:
+        if p is None:
+            rows.append((0, 0, 0, -1, -1, -1, 0, 0))
+            continue
+        vals = np.asarray(p.vals, np.int64)
+        if vals.min() < 0 or vals.max() >= 1 << 16:
+            bad = int(vals.min() if vals.min() < 0 else vals.max())
+            raise ValueError(f"a walk-table value of {bad} does not fit "
+                             "the walk tables' 16-bit values")
+        disp = -1 if p.disp is None else put_words(p.disp)
+        keys = put_words(p.keys)
+        rows.append((p.mul, p.lg_b, p.lg_r, disp, keys,
+                     put(vals.astype(np.uint16)), 1, 0))
+        ends.append(off // 2)
+    words = np.concatenate(parts).view(np.int32)
+    return Packed(arena=torch.from_numpy(words).to(device),
+                  desc=torch.from_numpy(desc_array(rows)).to(device),
+                  rows=rows, derived={"table_ends": ends})
 
 
 def build_walk_tables(automaton: Automaton) -> WalkTables | None:

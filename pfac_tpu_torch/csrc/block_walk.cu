@@ -36,13 +36,15 @@
 //   shifts and a byte permute, and each step's two bytes per position from
 //   4 more words;
 // * the descriptor rows are staged once per CTA in shared memory;
-// * tables resident by depth: the arena is laid out in row order (entry,
-//   entry_final, then each step's main, odd, even), and its first
-//   `resident` words (the host picks the longest prefix of whole tables
-//   that fits, backends/walk.py::resident_words, down to none when not even
-//   the entry table fits) are staged in shared memory by bulk copy; a
-//   probe reads word i from there when i < resident, else through L1/L2
-//   (__ldg);
+// * tables resident by depth: the walk tables K2 reads
+//   (backends/walk_tables.py::pack_walk: keys and displacements in words,
+//   values in 16-bit half-words, walk_common.cuh::walk_val) are laid out in
+//   row order (entry, entry_final, then each step's main, odd, even), and
+//   their first `resident` words (the host picks the longest prefix of
+//   whole tables that fits, backends/walk.py::resident_words, down to none
+//   when not even the entry table fits) are staged in shared memory by bulk
+//   copy; a probe reads word i from there when i < resident, else through
+//   L1/L2 (__ldg);
 // * probes go kBatch positions at a time, stage by stage (all slots, then
 //   all keys and values), so a thread keeps kBatch independent loads in
 //   flight; a dead position's key carries the DEAD index, which no table
@@ -51,8 +53,8 @@
 //   one alive (a long pattern among short ones) walks on alone
 //   (walk_tail), and a ruleset without steps (every pattern 4 bytes) skips
 //   the entry-state probe, whose result nothing reads;
-// * one kernel for an arena that is resident whole (no test per table word)
-//   and one for a split arena;
+// * one kernel for tables resident whole (no test per table word) and one
+//   for split tables;
 // * results are staged per warp in shared memory with K1's XOR swizzle and
 //   leave as 128-byte warp stores, each word predicated on match != 0;
 // * the grid size (an occupancy query) and the shared-memory attribute are
@@ -120,8 +122,8 @@ __device__ __forceinline__ void probe_batch(const Tab& t,
   }
 #pragma unroll
   for (int j = 0; j < kBatch; ++j) {
-    val[j] = t[p.val_off + sl[j]];
-    hit[j] = t[p.key_off + sl[j]] == key[j];
+    val[j] = pfac::walk_val(t, p, sl[j]);
+    hit[j] = pfac::walk_key(t, p, sl[j]) == key[j];
   }
 }
 
@@ -147,13 +149,13 @@ __device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
     if (odd.present) so = pfac::probe_slot(t, odd, okey);
     if (main.present) sm = pfac::probe_slot(t, main, mkey);
     if (even.present) se = pfac::probe_slot(t, even, mkey);
-    if (odd.present && rd > d && t[odd.key_off + so] == okey)
-      match = t[odd.val_off + so];
+    if (odd.present && rd > d && pfac::walk_key(t, odd, so) == okey)
+      match = pfac::walk_val(t, odd, so);
     if (!main.present) break;
-    const bool hit = rd > d + 1 && t[main.key_off + sm] == mkey;
-    const uint32_t next = t[main.val_off + sm];
-    if (even.present && rd > d + 1 && t[even.key_off + se] == mkey)
-      match = t[even.val_off + se];
+    const bool hit = rd > d + 1 && pfac::walk_key(t, main, sm) == mkey;
+    const uint32_t next = pfac::walk_val(t, main, sm);
+    if (even.present && rd > d + 1 && pfac::walk_key(t, even, se) == mkey)
+      match = pfac::walk_val(t, even, se);
     state = hit ? next : kDead;
   }
   return match;
@@ -268,8 +270,8 @@ __device__ __forceinline__ void walk_batch(
 // Dynamic shared memory, in this order (backends/block_walk.py::
 // fixed_smem_bytes repeats it): [kHeader: mbarriers][2 tiles of kChunk +
 // look + kTilePad bytes][kWarps * 512 staging words][desc rows][cap tile
-// numbers][resident arena words]. kAllResident: `resident` covers the whole
-// arena, and every probe reads shared memory without a test.
+// numbers][resident table words]. kAllResident: `resident` covers the
+// whole tables, and every probe reads shared memory without a test.
 template <bool kAllResident>
 __global__ void __launch_bounds__(kThreads)
 block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
@@ -433,14 +435,15 @@ int64_t smem_bytes(int32_t nsteps, int32_t look, int32_t cap,
 }  // namespace
 
 // data: uint8[>= n], any alignment; counts: int32[nblocks] (K1's survivors
-// per block); out: int32[>= nblocks * block]; block % 8192 == 0; arena:
-// 16-byte aligned, its first `resident` words staged in shared memory (any
-// prefix, 0 included: the words past it are read through L1/L2); `words`
-// the arena's length (resident <= words); desc: 2 + 3 * nsteps rows; look:
-// the walk's lookahead in bytes, a multiple of 16, >= 4 + 2 * nsteps; cap:
-// room for a CTA's tile numbers, a multiple of 4, cap * SMs >= nblocks *
-// block / 8192. Else cudaErrorInvalidValue; a prefix that does not fit
-// shared memory fails the launch.
+// per block); out: int32[>= nblocks * block]; block % 8192 == 0; arena: the
+// walk tables (backends/walk_tables.py::pack_walk), 16-byte aligned, its
+// first `resident` words staged in shared memory (any prefix, 0 included:
+// the words past it are read through L1/L2); `words` the arena's length
+// (resident <= words); desc: 2 + 3 * nsteps rows (values' offsets in
+// half-words); look: the walk's lookahead in bytes, a multiple of 16, >= 4
+// + 2 * nsteps; cap: room for a CTA's tile numbers, a multiple of 4, cap *
+// SMs >= nblocks * block / 8192. Else cudaErrorInvalidValue; a prefix that
+// does not fit shared memory fails the launch.
 cudaError_t pfac::block_walk_launch(int device, const void* data, int32_t n,
                                     const void* counts, int32_t nblocks,
                                     int32_t block, int32_t thresh,

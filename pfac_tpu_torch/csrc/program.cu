@@ -59,7 +59,6 @@ struct Spec {
   int32_t tier;
   int32_t thresh, capacity;                    // the compaction
   int32_t walk_words, walk_nsteps, look, tile_cap, k3_resident, k2_resident;
-  int32_t k2_words;                            // K2's image of the tables
   int32_t csr_nsteps;
   int32_t reduce, count;                       // 0 or 1
   int64_t shard_bytes, bits_at, counts_at, offsets_at, pos_at;
@@ -67,10 +66,8 @@ struct Spec {
   int64_t count_at;   // the count word's offset in the result (count = 1)
   const void* sieve_arena;
   const void* sieve_desc;
-  const void* walk_arena;
+  const void* walk_arena;   // K2's and K3's (backends/walk_tables.py)
   const void* walk_desc;
-  const void* k2_arena;   // K2's image: values in 16 bits (backends/walk.py)
-  const void* k2_desc;
   const void* csr_arena;
   const void* csr_desc;
   void* counters;     // int64[5]: survivors, dense blocks (compact_scan),
@@ -158,8 +155,8 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
       const void* total = offsets + 4LL * sp.nblocks;   // on the device
       if (sp.tier == kWalkTables)
         err = pfac::walk_launch(sp.device, data, n, pos, total, sp.capacity,
-                                sp.k2_arena, sp.k2_words, sp.k2_resident,
-                                sp.k2_desc, sp.walk_nsteps, match,
+                                sp.walk_arena, sp.walk_words, sp.k2_resident,
+                                sp.walk_desc, sp.walk_nsteps, match,
                                 walk_counts, kernel());
       else
         err = pfac::csr_walk_launch(sp.device, data, n, pos, total,
@@ -251,22 +248,6 @@ cudaError_t run(Program* p, const Inputs& in, cudaStream_t stream) {
   return cudaGraphLaunch(p->exec, stream);
 }
 
-// The same plan enqueued node by node on `stream`, with no graph: the
-// comparison chip_smoke.py's phase 13 times against run() (PERF.md). No
-// call path of the package takes it.
-cudaError_t run_direct(Program* p, const Inputs& in, cudaStream_t stream) {
-  std::lock_guard<std::mutex> lock(p->mu);
-  cudaError_t err = cudaSetDevice(p->spec.device);
-  if (err != cudaSuccess) return err;
-  err = plan(p->spec, in, p->next);
-  for (size_t i = 0; err == cudaSuccess && i < p->next.size(); ++i) {
-    Step& st = p->next[i];
-    err = st.is_memset ? cudaMemsetAsync(st.dst, 0, st.bytes, stream)
-                       : st.k.launch(stream);
-  }
-  return err;
-}
-
 bool valid(const Spec& sp) {
   return sp.shards >= 1 && sp.npad > 0 && sp.block > 0 &&
          sp.nblocks == sp.npad / sp.block && sp.tier >= kSieveOnly &&
@@ -320,19 +301,6 @@ extern "C" int pfac_program_launch(void* prog, const void* data, int32_t n,
                   static_cast<char*>(scratch), status, nstatus, epoch, 0};
   return static_cast<int>(run(static_cast<Program*>(prog), in,
                               static_cast<cudaStream_t>(stream)));
-}
-
-// As pfac_program_launch, each node launched on its own from C (run_direct).
-extern "C" int pfac_program_launch_direct(void* prog, const void* data,
-                                          int32_t n, void* result,
-                                          void* scratch, void* status,
-                                          int64_t nstatus, uint32_t epoch,
-                                          void* stream) {
-  const uint64_t ptr = reinterpret_cast<uint64_t>(data);
-  const Inputs in{&ptr, &n, static_cast<char*>(result),
-                  static_cast<char*>(scratch), status, nstatus, epoch, 0};
-  return static_cast<int>(run_direct(static_cast<Program*>(prog), in,
-                                     static_cast<cudaStream_t>(stream)));
 }
 
 // A sharded call: a pointer and a length a shard of the device, in order.

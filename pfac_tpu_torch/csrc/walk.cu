@@ -28,7 +28,7 @@
 // * the survivor count stays on the device: the kernel reads it (the
 //   compaction's total) and the positions from a buffer that may be
 //   longer, so the host never waits for the count;
-// * a persistent grid, one CTA an SM at the Snort image (the grid's size
+// * a persistent grid, one CTA an SM at the Snort tables (the grid's size
 //   cached on the host, walk_common.cuh). Survivors are dealt round robin,
 //   in runs of 32 consecutive ones (a warp's), over as many CTAs as there
 //   are runs, at most the grid: a few thousand survivors still reach every
@@ -52,21 +52,21 @@
 //   bytes; the three probes' slots are taken first, so a step is two
 //   dependent loads deep;
 // * the descriptor rows in shared memory, a row read as two 16-byte words;
-// * an image of the tables of its own (backends/walk.py::image): the
-//   arena's tables in its row order, displacements and keys as 32-bit
-//   words, values as 16-bit half-words (the encoding keeps every state
-//   index and ID below DEAD), each array on 16 bytes. The Snort-scale
-//   set's image is 199,856 B where the arena is 260,832: it fits shared
-//   memory whole, so no probe of a deep walk leaves it (the arena's would
-//   leave the tables of depth >= 32 to L1/L2, and at density most warps'
-//   iterations would wait on a lane there);
-// * tables resident by depth: the image's first `resident` words (all of
-//   it where it fits beside the descriptor rows, else the longest prefix
-//   of whole tables that does, backends/walk.py::launch_plan, down to
-//   none) arrive in shared memory by one bulk copy while each lane fetches
-//   its first survivor; a probe past the prefix reads L1/L2 (__ldg). A CTA
-//   with fewer than kStageMin survivors stages nothing of a split image.
-//   One kernel for an image resident whole, one for a split image;
+// * the walk tables in the layout K3 reads too
+//   (backends/walk_tables.py::pack_walk): in row order, displacements and
+//   keys as 32-bit words, values as 16-bit half-words (the encoding keeps
+//   every state index and ID below DEAD), each array on 16 bytes. The
+//   Snort-scale set's tables are 199,856 B: they fit shared memory whole,
+//   so no probe of a deep walk leaves it (32-bit values would take 260,832
+//   B and leave the tables of depth >= 32 to L1/L2, where at density most
+//   warps' iterations wait on a lane);
+// * tables resident by depth: their first `resident` words (all of them
+//   where they fit beside the descriptor rows, else the longest prefix of
+//   whole tables that does, backends/walk.py::launch_plan, down to none)
+//   arrive in shared memory by one bulk copy while each lane fetches its
+//   first survivor; a probe past the prefix reads L1/L2 (__ldg). A CTA
+//   with fewer than kStageMin survivors stages nothing of split tables.
+//   One kernel for tables resident whole, one for split tables;
 // * a survivor's bytes by 16-byte loads from its aligned-down address, two
 //   chunks in registers, the next chunk loaded as the walk enters the
 //   second (walk_common.cuh::Bytes): no byte load on the dependent chain.
@@ -93,7 +93,7 @@ constexpr uint32_t kDead = 0xFFFFu;
 constexpr int kThreads = 1024;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kHeader = 16;                   // the tables' mbarrier
-// A CTA with fewer survivors reads a split image through L1/L2: staging it
+// A CTA with fewer survivors reads split tables through L1/L2: staging them
 // (up to 227 KB) would take longer than its few walks.
 constexpr int32_t kStageMin = 256;
 
@@ -120,8 +120,9 @@ __device__ __forceinline__ uint32_t pair_be(const pfac::Bytes& w, uint32_t o) {
 
 // Dynamic shared memory, in this order (backends/walk.py::fixed_smem_bytes
 // repeats it): [kHeader: mbarrier][2 + 3 * nsteps descriptor rows]
-// [resident image words]. kAllResident: `resident` covers the whole image.
-// A value is read as a half-word at its row's val_off (Tab::half).
+// [resident table words]. kAllResident: `resident` covers the whole
+// tables. A value is read as a half-word at its row's val_off
+// (walk_common.cuh::walk_val).
 template <bool kAllResident>
 __global__ void __launch_bounds__(kThreads, 1)
 walk_kernel(const uint8_t* __restrict__ data, int32_t n,
@@ -220,16 +221,16 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
       if (e_on) se = pfac::probe_slot(tb, ep, mkey);
       uint32_t ks = 0, vs = 0, ko = 0, vo = 0, ke = 0, ve = 0;
       if (s_on) {
-        ks = tb[sp.key_off + ss];
-        vs = tb.half(sp.val_off + ss);
+        ks = pfac::walk_key(tb, sp, ss);
+        vs = pfac::walk_val(tb, sp, ss);
       }
       if (o_on) {
-        ko = tb[op.key_off + so];
-        vo = tb.half(op.val_off + so);
+        ko = pfac::walk_key(tb, op, so);
+        vo = pfac::walk_val(tb, op, so);
       }
       if (e_on) {
-        ke = tb[ep.key_off + se];
-        ve = tb.half(ep.val_off + se);
+        ke = pfac::walk_key(tb, ep, se);
+        ve = pfac::walk_val(tb, ep, se);
       }
       if (o_on && rd > d && ko == okey) match = vo;
       if (e_on && rd > d + 1 && ke == mkey) match = ve;
@@ -275,11 +276,12 @@ const void* kernel_of(bool all) {
 
 // data: uint8[>= n], any alignment; pos: int32[cap], the first
 // min(*count, cap) of them walked (count: a device int32, or null for all
-// cap), each < n; out: int32[>= n]; arena: K2's image of the tables
-// (backends/walk.py::image), int32[words], 16-byte aligned, its first
-// `resident` words (any prefix, 0 included) staged in shared memory; desc:
-// the image's 2 + 3 * nsteps rows (values' offsets in half-words); counters: int64[2] the walk steps and
-// the lane slots are added to, or null. Else cudaErrorInvalidValue; a
+// cap), each < n; out: int32[>= n]; arena: the walk tables
+// (backends/walk_tables.py::pack_walk), int32[words], 16-byte aligned, its
+// first `resident` words (any prefix, 0 included) staged in shared memory;
+// desc: their 2 + 3 * nsteps rows (values' offsets in half-words);
+// counters: int64[2] the walk steps and the lane slots are added to, or
+// null. Else cudaErrorInvalidValue; a
 // prefix that does not fit shared memory fails the launch. One launch,
 // whatever the count.
 cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,

@@ -18,7 +18,7 @@ constexpr uint32_t kBulkMax = 1u << 15;       // bytes per bulk copy
 
 // Arena words: shared memory below `resident`, L1/L2 from there on.
 // half(h) reads the 16-bit half-word h (the low half of word h / 2 where h
-// is even), as K2's image keeps its values.
+// is even), as the walk tables keep their values.
 struct SplitTab {
   const uint32_t* s;
   const int32_t* __restrict__ g;
@@ -43,6 +43,21 @@ struct SmemTab {
     return reinterpret_cast<const uint16_t*>(s)[h];
   }
 };
+
+// The key word and the value of slot s of walk table p, as K2 and K3 read
+// them: the walk tables keep keys in words and values in 16-bit half-words
+// (backends/walk_tables.py::pack_walk; the row's val_off counts
+// half-words).
+template <class Tab>
+__device__ __forceinline__ uint32_t walk_key(const Tab& t, const Probe& p,
+                                             uint32_t s) {
+  return t[p.key_off + s];
+}
+template <class Tab>
+__device__ __forceinline__ uint32_t walk_val(const Tab& t, const Probe& p,
+                                             uint32_t s) {
+  return t.half(p.val_off + s);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

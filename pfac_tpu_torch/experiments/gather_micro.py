@@ -18,7 +18,8 @@ The arena sweep runs G1 in every placement that fits and in its default
 one, and G3 with a chain
 of 4 hashed steps (the walks' pattern), with 16M uniform random word
 indices over the four arenas the port builds: the Snort ruleset's sieve
-and walk arenas and the 100K-signature ruleset's sieve and CSR arenas.
+arena and walk tables (the layout K2 and K3 read, its values two to a
+word: 199,856 B) and the 100K-signature ruleset's sieve and CSR arenas.
 
     python -m pfac_tpu_torch.experiments.gather_micro   # from the repo root
 """
@@ -84,8 +85,9 @@ def chain_expect(table: np.ndarray, idx: np.ndarray, chain: int) -> np.ndarray:
 
 
 def arenas_of(eng, engb) -> dict[str, torch.Tensor]:
-    """The four arenas of a Snort-scale engine (walk-table tier) and a
-    100K-signature engine (CSR tier)."""
+    """The four arenas of a Snort-scale engine (walk-table tier: its sieve
+    arena and its walk tables as K2 and K3 read them) and a 100K-signature
+    engine (CSR tier)."""
     return {"snort_sieve": eng._sieve.arena, "snort_walk": eng._walk.arena,
             "100k_sieve": engb._sieve.arena, "100k_csr": engb._csr.arena}
 

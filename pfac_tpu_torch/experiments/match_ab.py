@@ -42,7 +42,7 @@ median over 20 calls) and of each other kernel, the call's CUDA-event ms,
 K2 alone through its wrapper on the same survivors (``k2_batched_ms``:
 batches of 10 ``walk.walk`` calls), a fingerprint, and, on a tree that
 counts them, the walk steps and lane slots of one call (``walk_steps``,
-``walk_slots``) and whether its K2 held its image of the tables whole in
+``walk_slots``) and whether its K2 held the walk tables whole in
 shared memory (``whole_calls``, ``split_calls``: 1 or 0; ``null``
 elsewhere).
 

@@ -28,7 +28,7 @@ to ``span.<name>.calls`` and ``span.<name>.s``.
   sharded call);
 * ``positions``: the positions the programs scanned (npad a shard);
 * ``walk.whole_calls``, ``walk.split_calls``: the program calls on the
-  walk-table tier whose K2 holds its whole image of the tables in shared
+  walk-table tier whose K2 holds the whole walk tables in shared
   memory, and those whose K2 holds a prefix and reads the rest through
   L1/L2 (``backends/walk.py::launch_plan``);
 * ``build.programs``, ``build.program_s``: programs built, and the host

@@ -160,23 +160,26 @@ def test_resident_words_raises_when_entry_does_not_fit():
 
 def _f1_patterns(extra=()):
     """The ruleset of ROADMAP.md's fault F1: 17,000 random 6-byte patterns
-    (seed 17000), on the walk-table tier, whose entry tables alone outgrow
-    the shared memory K2 and K3 have for tables."""
+    (seed 17000), on the walk-table tier, whose entry table alone outgrows
+    the shared memory K3 has for tables (K2, with more room, keeps it)."""
     rng = np.random.default_rng(17000)
     return [bytes(rng.integers(0, 256, size=6, dtype=np.uint8))
             for _ in range(17000)] + list(extra)
 
 
 def test_f1_plans_fit_on_132_sms(monkeypatch):
-    # K3's and K2's plans at 128 MB on a 132-SM card: nothing of the arena
-    # resident for K3, every table read through L1/L2, and no raise; K2's
-    # image, its values in 16 bits, keeps the entry table alone
+    # K3's and K2's plans at 128 MB on a 132-SM card over the one layout
+    # of the walk tables: nothing resident for K3, every table read through
+    # L1/L2, and no raise; K2 keeps the entry table alone
     eng = pt.Matcher(_f1_patterns(), device="cpu")._engine()
     tabs = eng._walk
     assert tabs is not None and eng.walk_tables.vmem_bytes <= 6 << 20
-    assert 4 * block_walk.table_ends(tabs)[0] > sieve.SMEM_LIMIT
     nsteps = block_walk.steps_of(tabs)
     ntiles = npad_for(128 << 20) // CHUNK
+    entry = 4 * block_walk.table_ends(tabs)[0]
+    assert sieve.SMEM_LIMIT - block_walk.fixed_smem_bytes(
+        nsteps, block_walk.tile_cap(ntiles, 132)) < entry
+    assert entry <= sieve.SMEM_LIMIT - walk.fixed_smem_bytes(nsteps)
 
     class Props:
         multi_processor_count = 132
@@ -189,7 +192,7 @@ def test_f1_plans_fit_on_132_sms(monkeypatch):
                   block_walk.tile_cap(ntiles, 132), 0)
     assert block_walk.fixed_smem_bytes(nsteps, k3[2]) <= sieve.SMEM_LIMIT
     k2 = walk.launch_plan(tabs, dev)
-    assert k2 == (nsteps, walk.table_ends(walk.image(tabs))[0])
+    assert k2 == (nsteps, walk.table_ends(tabs)[0])
     assert walk.fixed_smem_bytes(nsteps) + 4 * k2[1] <= sieve.SMEM_LIMIT
 
 
@@ -231,8 +234,8 @@ def test_tier_gate_keeps_k3_within_shared_memory():
 
 
 def test_snort_budget_on_132_sms():
-    # the Snort walk arena at 128 MB on a 132-SM card: about two thirds of
-    # it resident, everything within a CTA's shared memory
+    # the Snort walk tables at 128 MB on a 132-SM card: most of them
+    # resident (89%), everything within a CTA's shared memory
     tabs = _snort_walk()
     nsteps = block_walk.steps_of(tabs)
     cap = block_walk.tile_cap(npad_for(128 << 20) // CHUNK, 132)

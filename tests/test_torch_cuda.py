@@ -167,8 +167,8 @@ def _k3_equal(data, n, eng, block=sieve.BLOCK):
 
 
 def test_block_walk_tables_beyond_resident(dev):
-    # the Snort-scale walk arena does not fit beside the tile buffers: deep
-    # steps are read through L1/L2, shallow ones from shared memory
+    # the Snort-scale walk tables do not fit K3 beside its tile buffers:
+    # deep steps are read through L1/L2, shallow ones from shared memory
     pats = rulesets.snort_like_patterns() + [b"zzzz", b"zzzzzzzz"]
     m = pt.Matcher(pats, device=dev)
     eng = m._engine()
@@ -526,27 +526,24 @@ def test_walkers_count_contract(dev, offset):
 
 @pytest.mark.parametrize("which", ["none", "entry", "prefix", "plan", "all"])
 def test_walk_resident_prefixes(dev, which, monkeypatch):
-    # K2 with none, the entry tables, the prefix of the tables the arena's
-    # words would have held, the plan (the Snort-like set's image whole)
-    # and a small set's whole image in shared memory
+    # K2 with none, the entry tables, the prefix of the tables K3 holds
+    # beside its tiles, the plan (the Snort-like set's tables whole) and a
+    # small set's whole tables in shared memory
     pats = (_ruleset(4)[0] if which == "all"
             else rulesets.snort_like_patterns())
     eng = pt.Matcher(pats, device=dev)._engine()
     tabs = eng._walk
-    img = walk.image(tabs)
     nsteps, planned = walk.launch_plan(tabs, dev)
-    words = img.arena.numel()
-    budget = sieve.SMEM_LIMIT - walk.fixed_smem_bytes(nsteps)
-    arena_tables = walk.table_ends(tabs).index(
-        walk.resident_words(tabs, budget)) + 1
-    resident = {"none": 0, "entry": walk.table_ends(img)[1],
-                "prefix": walk.table_ends(img)[arena_tables - 1],
+    words = tabs.arena.numel()
+    n = 4 << 20
+    resident = {"none": 0, "entry": walk.table_ends(tabs)[1],
+                "prefix": block_walk.launch_plan(
+                    tabs, npad_for(n) // block_walk.CHUNK, dev)[3],
                 "plan": planned, "all": words}[which]
     assert planned == words
     assert which != "prefix" or 0 < resident < words
     monkeypatch.setattr(walk, "launch_plan", lambda t, d: (nsteps, resident))
     rng = np.random.default_rng(8)
-    n = 4 << 20
     data = torch.from_numpy(rulesets.planted_text(rng, pats, n, 0.5)).to(dev)
     match, bits, counts = sieve.sieve(data, n, npad_for(n), eng._sieve)
     exact = compact.compact_plain(bits, counts, sieve.BLOCK + 1)
@@ -579,9 +576,9 @@ def test_f1_entry_tables_beyond_shared_memory(dev):
                                   sieve.BLOCK)
     data = torch.from_numpy(host).to(dev)
     npad = npad_for(n)
-    # K2's image keeps its entry tables; nothing of the arena fits K3
-    img = walk.image(eng._walk)
-    assert walk.launch_plan(eng._walk, dev)[1] in walk.table_ends(img)[:2]
+    # K2 keeps the entry tables; nothing of the walk tables fits K3
+    assert walk.launch_plan(eng._walk, dev)[1] in walk.table_ends(
+        eng._walk)[:2]
     assert block_walk.launch_plan(eng._walk, npad // block_walk.CHUNK,
                                   dev)[3] == 0
     esc, _ = _k3_equal(data, n, eng)
@@ -1595,8 +1592,8 @@ def test_the_walk_wrapper_counts_nothing(dev):
 @pytest.mark.parametrize("plan", ["whole", "split"])
 def test_k2_image_whole_and_split(dev, plan, corpus):
     # K2 in both instantiations, by the ruleset and no switch: the
-    # Snort-like set's image fits shared memory whole, the F1 set's does
-    # not (its entry table alone is resident). On 8 MB of the set's own
+    # Snort-like set's walk tables fit shared memory whole, the F1 set's
+    # do not (their entry table alone is resident). On 8 MB of the set's own
     # patterns concatenated and on text with 1.5% planted copies: K2
     # through its wrapper and inside a program equals the plain walk, its
     # walk steps equal the host's recount, and every program call counts
@@ -1606,7 +1603,7 @@ def test_k2_image_whole_and_split(dev, plan, corpus):
     m = pt.Matcher(pats, device=dev)
     eng = m._engine()
     resident = walk.launch_plan(eng._walk, dev)[1]
-    words = walk.image(eng._walk).arena.numel()
+    words = eng._walk.arena.numel()
     assert (resident == words) == (plan == "whole") and resident > 0
     rng = np.random.default_rng(37)
     n = (8 << 20) - 5
@@ -1621,7 +1618,7 @@ def test_k2_image_whole_and_split(dev, plan, corpus):
     exact = compact.compact_plain(bits, counts, thresh)
     # the pattern stream: enough survivors that every CTA stages what its
     # plan holds (kStageMin = 256 a CTA in csrc/walk.cu); the text: a few
-    # thousand, so a CTA stages a split image's prefix not at all
+    # thousand, so a CTA stages split tables' prefix not at all
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (exact.numel() >= 256 * sms) == (corpus == "virus_dense_worst")
     assert exact.numel() > 1000

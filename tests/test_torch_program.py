@@ -5,9 +5,9 @@ A program runs only on the card; what the CPU can hold is what it is built
 from. Its launch geometry, as :func:`program.geometry` computes it for a
 132-SM card, equals what each per-kernel wrapper computes for its own
 launch (the sieve's placement, the compaction's threshold and buffer, K2's
-and K3's plans, the CSR walk's steps), for the Snort-like set (K2's image
-whole in shared memory), ROADMAP.md's F1 set (nothing of the arena
-resident for K3, the entry table of K2's image for K2), one of the F1
+and K3's plans, the CSR walk's steps), for the Snort-like set (K2's tables
+whole in shared memory), ROADMAP.md's F1 set (nothing of the walk tables
+resident for K3, their entry table for K2), one of the F1
 regime's sets
 (``rulesets.f1_regime``, whose two rulesets of ``chip_smoke.py`` also
 match the reference's golden model here) and a 100,000-signature set whose
@@ -110,8 +110,7 @@ def test_geometry_equals_the_wrappers(engines, card, name, mb, shards, red,
     if eng._walk is not None:      # K2 and K3, as walk.walk and block_walk
         assert (geo.walk_nsteps, geo.k2_resident) == walk.launch_plan(
             eng._walk, card)
-        assert geo.k2_words == walk.image(eng._walk).arena.numel()
-        assert (geo.k2_resident == geo.k2_words) == (name == "snort")
+        assert (geo.k2_resident == geo.walk_words) == (name == "snort")
         assert (geo.walk_nsteps, geo.look, geo.tile_cap,
                 geo.k3_resident) == block_walk.launch_plan(
             eng._walk, npad // block_walk.CHUNK, card)
@@ -141,16 +140,16 @@ def test_geometry_equals_the_wrappers(engines, card, name, mb, shards, red,
 
 
 def test_f1_sets_put_nothing_in_shared_memory(engines, card):
-    # nothing of the arena fits K3's shared memory; K2's image, its values
-    # in 16 bits, keeps its entry table there and reads the rest through
+    # nothing of the walk tables fits K3's shared memory; K2, with more
+    # room, keeps their entry table there and reads the rest through
     # L1/L2
     for name in ("f1", "f1_regime_20k"):
         eng = _engine(engines, name)
         geo = program.geometry(eng._sieve, eng._walk, eng._csr,
                                npad_for(4 << 20), BLOCK, card)
-        entry = walk.table_ends(walk.image(eng._walk))[0]
+        entry = walk.table_ends(eng._walk)[0]
         assert geo.tier == "walk" and geo.k3_resident == 0
-        assert geo.k2_resident == entry < geo.k2_words
+        assert geo.k2_resident == entry < geo.walk_words
 
 
 @pytest.mark.parametrize("seed,k", [(20_000, 20_000), (30_000, 30_000)])
@@ -187,8 +186,8 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     geo = program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(8 << 20),
                            BLOCK, card, shards=3, count=True)
     prog = program.Program(geo, eng._sieve, eng._walk, eng._csr, card)
-    # 21 int32 fields, 4 bytes of padding, 7 int64 fields, 9 pointers
-    assert ctypes.sizeof(program.Spec) == 21 * 4 + 4 + 7 * 8 + 9 * 8
+    # 20 int32 fields, 7 int64 fields, 7 pointers
+    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 7 * 8
     for field, _ in program.Spec._fields_:
         value = getattr(prog.spec, field)
         if field == "counters":         # the device's words, at the build
@@ -199,8 +198,6 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
             assert value == program.TIERS.index(geo.tier)
         elif field.endswith(("_arena", "_desc")):
             tabs = {"sieve": eng._sieve, "walk": eng._walk,
-                    "k2": None if eng._walk is None
-                    else walk.image(eng._walk),
                     "csr": eng._csr}[field.split("_")[0]]
             want = None if tabs is None else getattr(
                 tabs, field.split("_")[1]).data_ptr()
@@ -222,7 +219,7 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
                                       ("f1", "walk.split_calls"),
                                       ("100k", None)])
 def test_program_counts_k2_whole_and_split_calls(engines, card, name, key):
-    # a walk-tier program counts each call as whole (K2's image resident
+    # a walk-tier program counts each call as whole (K2's tables resident
     # whole) or split, by its plan, once a call whatever its shards or
     # reduce; the CSR tier counts neither
     eng = _engine(engines, name)

@@ -6,13 +6,16 @@ The reference walker runs as ``build_walker(..., interpret=True)`` without
 the sieve tables, so it reports matches of >= 4 bytes only; the port's walk
 writes exactly those into a zeroed result.
 
-K2's image of the tables (``walk.image``: values in 16 bits) holds the
-arena's tables word for word, refuses a value of 2^16 or more, fits the
-Snort-like set whole in K2's shared memory, keeps a longer prefix than the
-arena for sets that do not fit, and, walked on the host as the kernel reads
-it (``walk.image_walk_plain``), equals ``walk_plain``.
+The walk tables' one device layout (``walk_tables.pack_walk``: values in
+16-bit half-words, read by K2, K3 and the plain walkers) holds the host
+tables word for word, refuses a value of 2^16 or more, fits the Snort-like
+set whole in K2's shared memory, gives K2 and K3 at least as many whole
+tables in shared memory as 32-bit values would (sizes computed from the
+host tables), and, walked on the host as the kernels read it
+(``walk.walk_plain``), gives the golden model's matches of >= 4 bytes.
 """
 import bisect
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +24,11 @@ import torch
 
 import pfac_tpu_torch as pt
 from pfac_tpu.backends import pallas_walk as W
-from pfac_tpu_torch.backends import sieve, walk
+from pfac_tpu_torch.backends import block_walk, golden, sieve, walk
 from pfac_tpu_torch.backends.probe import Packed, desc_array
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
-from pfac_tpu_torch.backends.walk_tables import build_walk_tables, walk_oracle
+from pfac_tpu_torch.backends.walk_tables import (build_walk_tables,
+                                                 pack_walk, walk_oracle)
 from pfac_tpu_torch.core import Automaton
 from pfac_tpu_torch.experiments import rulesets
 
@@ -205,12 +209,12 @@ def test_matcher_on_a_pattern_stream_equals_golden():
 
 
 # --------------------------------------------------------------------------
-# K2's image of the tables
+# the walk tables' device layout
 # --------------------------------------------------------------------------
 
 def _f1_patterns():
     """ROADMAP.md's F1 ruleset: 17,000 random 6-byte patterns (seed
-    17000), whose entry table alone outgrows the arena's shared memory."""
+    17000), whose entry table alone outgrows K3's shared memory."""
     rng = np.random.default_rng(17000)
     return [bytes(rng.integers(0, 256, size=6, dtype=np.uint8))
             for _ in range(17000)]
@@ -229,11 +233,35 @@ def walk_sets():
     return {}
 
 
-def _tabs(walk_sets, name) -> Packed:
+def _engine(walk_sets, name):
     if name not in walk_sets:
         walk_sets[name] = pt.Matcher(IMAGE_SETS[name](),
                                      device="cpu")._engine()
-    return walk_sets[name]._walk
+    return walk_sets[name]
+
+
+def _tabs(walk_sets, name) -> Packed:
+    return _engine(walk_sets, name)._walk
+
+
+def _probes(wt) -> list:
+    """The host tables in descriptor-row order (WalkTables.to_device)."""
+    out = [wt.entry, wt.entry_final]
+    for s in wt.steps:
+        out += [s.main, s.odd, s.even]
+    return out
+
+
+def _wide_ends(wt) -> list[int]:
+    """Words at which each table would end with 32-bit values and no
+    padding (the layout's predecessor): from the host tables' sizes."""
+    ends, off = [], 0
+    for p in _probes(wt):
+        if p is not None:
+            off += (0 if p.disp is None else p.disp.size) + p.keys.size \
+                + p.vals.size
+            ends.append(off)
+    return ends
 
 
 CARD = torch.device("cuda", 0)       # K2's plan reads the device's index only
@@ -245,114 +273,148 @@ def _budget(tabs: Packed) -> int:
 
 @pytest.mark.parametrize("name", ["snort", "f1", "steps"])
 def test_image_holds_the_arenas_tables(walk_sets, name):
-    # the same rows in the same order: displacements and keys word for
-    # word, values as half-words equal to the arena's words, every array
-    # on 16 bytes, each table ending where the image's table ends say
-    tabs = _tabs(walk_sets, name)
-    img = walk.image(tabs)
-    assert walk.image(tabs) is img                # built once, kept
-    a = tabs.arena.numpy()
-    w = img.arena.numpy()
+    # the host tables in row order: displacements and keys word for word,
+    # values as half-words, every array on 16 bytes, each table ending
+    # where the layout's table ends say
+    eng = _engine(walk_sets, name)
+    tabs = eng._walk
+    probes = _probes(eng.walk_tables)
+    w = tabs.arena.numpy()
     h = w.view(np.uint16)
-    assert len(img.rows) == len(tabs.rows)
-    assert np.array_equal(img.desc.numpy(), desc_array(img.rows))
+    assert len(tabs.rows) == len(probes)
+    assert np.array_equal(tabs.desc.numpy(), desc_array(tabs.rows))
     want_bytes, ends = 0, []
-    for r, q in zip(tabs.rows, img.rows):
-        if not r[6]:
+    for p, q in zip(probes, tabs.rows):
+        if p is None:
             assert q == (0, 0, 0, -1, -1, -1, 0, 0)
             continue
-        assert q[:3] == r[:3] and q[6:] == r[6:]
-        slots = 1 << r[2]
-        if r[3] < 0:
+        assert q[:3] == (p.mul, p.lg_b, p.lg_r) and q[6:] == (1, 0)
+        slots = 1 << p.lg_r
+        if p.disp is None:
             assert q[3] == -1
         else:
-            nb = 1 << r[1]
-            assert q[3] % 4 == 0
-            assert np.array_equal(w[q[3]:q[3] + nb], a[r[3]:r[3] + nb])
+            nb = 1 << p.lg_b
+            assert q[3] % 4 == 0 and p.disp.size == nb
+            assert np.array_equal(w[q[3]:q[3] + nb], p.disp)
             want_bytes += -(-4 * nb // 16) * 16
         assert q[4] % 4 == 0 and q[5] % 8 == 0
-        assert np.array_equal(w[q[4]:q[4] + slots], a[r[4]:r[4] + slots])
+        assert p.keys.size == p.vals.size == slots
+        assert np.array_equal(w[q[4]:q[4] + slots], p.keys)
         assert np.array_equal(h[q[5]:q[5] + slots].astype(np.int64),
-                              a[r[5]:r[5] + slots].astype(np.int64))
+                              p.vals.astype(np.int64))
         want_bytes += 4 * slots + -(-2 * slots // 16) * 16
         ends.append(-(-(q[5] + slots) // 8) * 4)
-    assert walk.table_ends(img) == ends
+    assert walk.table_ends(tabs) == ends
     assert ends[-1] == w.size and 4 * w.size == want_bytes
 
 
 def test_image_refuses_a_value_past_16_bits():
-    tabs = build_walk_tables(Automaton.from_patterns(STEP_PATS)).to_device(
-        "cpu")
-    row = tabs.rows[2]                            # step 0's main table
+    wt = build_walk_tables(Automaton.from_patterns(STEP_PATS))
+    probes = _probes(wt)
+    main = probes[2]                              # step 0's main table
     for value, ok in ((0xFFFF, True), (1 << 16, False), (-1, False)):
-        arena = tabs.arena.clone()
-        arena[row[5] + 1] = value
-        img_of = lambda: walk.image(Packed(arena=arena, desc=tabs.desc,
-                                           rows=tabs.rows))
+        vals = main.vals.copy()
+        vals[1] = value
+        swapped = probes[:2] + [dataclasses.replace(main, vals=vals)] \
+            + probes[3:]
         if ok:
-            img = img_of()
-            h = img.arena.numpy().view(np.uint16)
-            assert int(h[img.rows[2][5] + 1]) == value
+            tabs = pack_walk(swapped, "cpu")
+            h = tabs.arena.numpy().view(np.uint16)
+            assert int(h[tabs.rows[2][5] + 1]) == value
         else:
             with pytest.raises(ValueError, match="16-bit"):
-                img_of()
+                pack_walk(swapped, "cpu")
 
 
 def test_snort_image_is_whole_in_shared_memory(walk_sets):
-    # the arena's 260,832 B outgrew K2's budget beside its descriptor
-    # rows, and the tables of depth >= 32 were read through L1/L2; the
-    # image's 199,856 B fit whole
-    tabs = _tabs(walk_sets, "snort")
-    img = walk.image(tabs)
+    # 32-bit values would make the tables 260,832 B, past K2's budget
+    # beside its descriptor rows, and leave the tables of depth >= 32 to
+    # L1/L2; the layout's 199,856 B fit whole
+    eng = _engine(walk_sets, "snort")
+    tabs = eng._walk
     nsteps = walk.steps_of(tabs)
-    assert 4 * tabs.arena.numel() == 260_832
-    assert 4 * img.arena.numel() == 199_856
+    wide = _wide_ends(eng.walk_tables)
+    assert 4 * wide[-1] == 260_832
+    assert 4 * tabs.arena.numel() == 199_856
     assert _budget(tabs) == 227_792
-    assert walk.launch_plan(tabs, CARD) == (nsteps, img.arena.numel())
+    assert walk.launch_plan(tabs, CARD) == (nsteps, tabs.arena.numel())
     assert walk.fixed_smem_bytes(nsteps) + 199_856 <= sieve.SMEM_LIMIT
-    old = walk.resident_words(tabs, _budget(tabs))
-    assert old == 56_776 and walk.table_ends(tabs).index(old) + 1 == 44
+    assert bisect.bisect_right(wide, _budget(tabs) // 4) == 44
 
 
 @pytest.mark.parametrize("name", ["f1", "snort_3000"])
 def test_overflowing_image_keeps_a_longer_prefix(walk_sets, name):
-    # where the image does not fit whole, K2 keeps at least as many whole
-    # tables as the arena's prefix would have held, within its budget
-    tabs = _tabs(walk_sets, name)
-    img = walk.image(tabs)
+    # where the tables do not fit whole, K2 keeps at least as many whole
+    # tables as 32-bit values would have left it, within its budget
+    eng = _engine(walk_sets, name)
+    tabs = eng._walk
     budget = _budget(tabs)
     resident = walk.launch_plan(tabs, CARD)[1]
-    assert 0 < resident < img.arena.numel() and 4 * resident <= budget
-    tables = bisect.bisect_right(walk.table_ends(img), resident)
-    old = bisect.bisect_right(walk.table_ends(tabs),
-                              walk.resident_words(tabs, budget))
+    assert 0 < resident < tabs.arena.numel() and 4 * resident <= budget
+    tables = bisect.bisect_right(walk.table_ends(tabs), resident)
+    old = bisect.bisect_right(_wide_ends(eng.walk_tables), budget // 4)
     assert tables >= old
     if name == "snort_3000":
         assert old > 0 and tables > old
+
+
+@pytest.mark.parametrize("name,more", [("snort", True), ("f1", False),
+                                       ("snort_3000", True)])
+def test_k3_prefix_holds_at_least_the_wide_tables(walk_sets, monkeypatch,
+                                                  name, more):
+    # K3 at 64 and 192 MiB on a 132-SM card reads the same layout: its
+    # resident prefix holds at least as many whole tables as 32-bit values
+    # would have left it (the Snort-like set 45-46 against 26); the F1
+    # set's entry table fits neither
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    eng = _engine(walk_sets, name)
+    tabs = eng._walk
+    for mb in (64, 192):
+        ntiles = npad_for(mb << 20) // block_walk.CHUNK
+        nsteps, _, cap, resident = block_walk.launch_plan(tabs, ntiles, CARD)
+        budget = sieve.SMEM_LIMIT - block_walk.fixed_smem_bytes(nsteps, cap)
+        assert 4 * resident <= budget and resident < tabs.arena.numel()
+        tables = bisect.bisect_right(walk.table_ends(tabs), resident)
+        old = bisect.bisect_right(_wide_ends(eng.walk_tables), budget // 4)
+        assert tables >= old and (tables > old) == more, (mb, tables, old)
 
 
 @pytest.mark.parametrize("corpus", ["pattern_stream", "planted_text"])
 def test_image_walk_equals_walk_plain(walk_sets, corpus):
     # 1 MiB of the Snort-like set's own patterns concatenated (the
     # virus-dense worst case) and of text with 1.5% planted copies: K1's
-    # survivors walked over the image as the kernel reads it equal the
-    # arena's plain walk, and so do a count's first positions
-    tabs = _tabs(walk_sets, "snort")
+    # survivors walked over the layout as the kernels read it give the
+    # golden model's matches of >= 4 bytes, and a count's first positions
+    # theirs alone
+    eng = _engine(walk_sets, "snort")
+    tabs = eng._walk
     pats = IMAGE_SETS["snort"]()
     rng = np.random.default_rng(21)
     n = 1 << 20
     host = (rulesets.pattern_stream(rng, pats, n) if corpus == "pattern_stream"
             else rulesets.planted_text(rng, pats, n, 0.015))
     data = torch.from_numpy(host.copy())
-    eng = walk_sets["snort"]
+    a = eng.automaton
+    length = np.zeros(int(a.pattern_ids.max()) + 1, np.int64)
+    length[a.pattern_ids] = [len(p) for p in a.sorted_patterns]
+    ids = golden.match_dense_batch(a, host)
+    deep = torch.from_numpy(np.where(length[ids] >= 4, ids, 0)
+                            .astype(np.int32))
     _, bits, _ = sieve.sieve_plain(data, n, npad_for(n), eng._sieve)
     pos = torch.nonzero(sieve.unpack_bits(bits)[:n]).flatten().to(
         torch.int32)
-    assert pos.numel() > 500
-    img = walk.image(tabs)
-    for count in (None, torch.tensor([pos.numel() // 3], dtype=torch.int32)):
-        want = torch.zeros(n, dtype=torch.int32)
+    assert pos.numel() > 500 and int((deep > 0).sum()) > 100
+    for count in (None, pos.numel() // 3):
         got = torch.zeros(n, dtype=torch.int32)
-        walk.walk_plain(data, n, pos, want, tabs, count)
-        walk.image_walk_plain(data, n, pos, got, img, count)
-        assert torch.equal(got, want) and int((want > 0).sum()) > 100
+        walk.walk_plain(data, n, pos, got, tabs, None if count is None
+                        else torch.tensor([count], dtype=torch.int32))
+        walked = pos[:count].long()
+        want = torch.zeros(n, dtype=torch.int32)
+        want[walked] = deep[walked]
+        assert torch.equal(got, want)
+        if count is None:
+            assert torch.equal(got, deep)      # every deep match survives
