@@ -1159,7 +1159,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
                          pos.data_ptr(), stream)
         lib.pfac_walk(0, d.data_ptr(), n, pos.data_ptr(),
                       total, cap, wt.arena.data_ptr(),
-                      wt.arena.numel(), k2_res, wt.desc.data_ptr(), nsteps,
+                      wt.arena.numel(), k2_res, wt.records.data_ptr(), nsteps,
                       match.data_ptr(), stream)
 
     mt.match_device(d)

@@ -47,7 +47,7 @@ _SIGNATURES = {
     # device, result, npad, ids, pos, count, status, nstatus, epoch, stream
     "pfac_reduce": [ctypes.c_int, _P, _I, _P, _P, _P, _P, ctypes.c_int64,
                     ctypes.c_uint32, _P],
-    # device, data, n, pos, count, cap, arena, words, resident, desc,
+    # device, data, n, pos, count, cap, arena, words, resident, records,
     # nsteps, out, stream
     "pfac_walk": [ctypes.c_int, _P, _I, _P, _P, _I, _P, _I, _I, _P, _I, _P,
                   _P],

@@ -82,6 +82,9 @@ class Packed:
     #: the walk tables' ends)
     derived: dict = dataclasses.field(default_factory=dict, repr=False,
                                       compare=False)
+    #: the walk tables' K2 records, derived from the rows
+    #: (``walk_tables.walk_records``); None for other tables
+    records: torch.Tensor | None = None
 
 
 def pack(probes: list[FlatProbe | None], device,

@@ -69,7 +69,7 @@ class Spec(ctypes.Structure):
             "match_at", "count_at")] + [
         (name, ctypes.c_void_p) for name in (
             "sieve_arena", "sieve_desc", "walk_arena", "walk_desc",
-            "csr_arena", "csr_desc", "counters")]
+            "walk_records", "csr_arena", "csr_desc", "counters")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +195,7 @@ class Program:
             sieve_desc=_ptr(sieve_tabs, "desc"),
             walk_arena=_ptr(walk_tabs, "arena"),
             walk_desc=_ptr(walk_tabs, "desc"),
+            walk_records=_ptr(walk_tabs, "records"),
             csr_arena=_ptr(csr_tabs, "arena"), csr_desc=_ptr(csr_tabs, "desc"))
         self.spec = Spec(**fields)
         # the tables stay alive as long as the program that points at them

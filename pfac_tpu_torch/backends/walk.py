@@ -12,8 +12,9 @@ The positions may come in a buffer longer than the survivors, with their
 number in a 1-element device tensor (the compaction's total): the kernel
 reads the count on the device, so the host never waits for it. The kernel
 runs on a persistent grid whose lanes take the next survivor as soon as a
-walk ends, with the descriptor rows and, by depth, as much of its tables as
-fits (:func:`resident_words`) in shared memory.
+walk ends, with its records (a loop iteration's three probes, derived from
+the descriptor rows: ``walk_tables.walk_records``) and, by depth, as much of
+its tables as fits (:func:`resident_words`) in shared memory.
 
 K2, K3 and the plain versions read the walk tables in their one layout
 (``walk_tables.pack_walk``): keys and displacements in words, values in
@@ -35,9 +36,9 @@ import ctypes
 import torch
 
 from .. import _build, trace
-from .probe import DESC_WORDS, Packed, slot, unsigned
+from .probe import Packed, slot, unsigned
 from .sieve import SMEM_LIMIT
-from .walk_tables import DEAD
+from .walk_tables import DEAD, RECORD_WORDS
 
 _HEADER = 16                # the tables' mbarrier, as csrc/walk.cu
 
@@ -68,13 +69,13 @@ def resident_words(tabs: Packed, budget: int) -> int:
 
 def fixed_smem_bytes(nsteps: int) -> int:
     """K2's dynamic shared memory without the resident tables
-    (csrc/walk.cu): its header and the descriptor rows."""
-    return _HEADER + 4 * DESC_WORDS * (2 + 3 * nsteps)
+    (csrc/walk.cu): its header and a record a loop iteration."""
+    return _HEADER + 4 * RECORD_WORDS * (nsteps + 1)
 
 
 def launch_plan(tabs: Packed, device: torch.device) -> tuple[int, int]:
     """(nsteps, resident words) of a K2 launch: the whole tables where they
-    fit beside the descriptor rows, else their longest prefix of whole
+    fit beside the records, else their longest prefix of whole
     tables that does; kept with the tables."""
     key = ("k2_plan", device.index)
     plan = tabs.derived.get(key)
@@ -107,7 +108,7 @@ def _check(data, n, pos, out, tabs: Packed, count=None) -> None:
     if count is not None and (count.dtype != torch.int32 or count.numel() != 1
                               or not count.is_contiguous()):
         raise ValueError("count must be a contiguous 1-element int32 tensor")
-    for t in (pos, out, tabs.arena, tabs.desc, count):
+    for t in (pos, out, tabs.arena, tabs.records, count):
         if t is not None and t.device != data.device:
             raise ValueError("all tensors must be on the data's device")
 
@@ -128,7 +129,7 @@ def walk(data: torch.Tensor, n: int, pos: torch.Tensor, out: torch.Tensor,
         data.device.index or 0, data.data_ptr(), n, pos.data_ptr(),
         None if count is None else count.data_ptr(), pos.shape[0],
         tabs.arena.data_ptr(), tabs.arena.numel(), resident,
-        tabs.desc.data_ptr(), nsteps, out.data_ptr(),
+        tabs.records.data_ptr(), nsteps, out.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream)
     trace.count("launch.walk_kernel")
     _build.check(rc, "walk_kernel")

@@ -16,7 +16,9 @@ d+2. Every probe is exact (full key compare); values are 16-bit.
 
 On a device the tables have one layout (:func:`pack_walk`), which K2, K3
 and the plain walkers read: keys and displacements in 32-bit words, values
-in 16-bit half-words.
+in 16-bit half-words. K3 and the plain walkers find a table by its
+descriptor row; K2 by the record of its loop's iteration
+(:func:`walk_records`), derived from the same rows.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ from .sieve_tables import SieveTables, from_chd, ref_bytes
 DEAD = 0xFFFF              # never a valid per-depth index
 _WALK_VMEM_BUDGET = 6 << 20    # reference tier gate (pallas_sieve.py)
 _ALIGN_HALVES = 8          # each array of the layout starts on 16 bytes
+RECORD_WORDS = 12          # a K2 record: three probes of four words
+DISP_BIT = 1 << 16         # a probe's meta word: lg_b | lg_r << 8 | flags
+PRESENT_BIT = 1 << 24
 
 
 def wprobe(keys, vals) -> FlatProbe:
@@ -94,7 +99,8 @@ def pack_walk(probes: list[FlatProbe | None], device) -> Packed:
     word h // 2 where h is even, as the card reads it);
     ``derived["table_ends"]`` holds the word at which each table ends.
     Raises ValueError on a value outside 16 bits, which the encoding
-    forbids (:data:`DEAD`)."""
+    forbids (:data:`DEAD`), and where K2's records cannot hold a table
+    (:func:`walk_records`)."""
     parts: list[np.ndarray] = []
     off = 0                                   # half-words
 
@@ -118,6 +124,10 @@ def pack_walk(probes: list[FlatProbe | None], device) -> Packed:
             bad = int(vals.min() if vals.min() < 0 else vals.max())
             raise ValueError(f"a walk-table value of {bad} does not fit "
                              "the walk tables' 16-bit values")
+        if p.disp is not None and int(np.max(p.disp)) >> p.lg_r:
+            raise ValueError(f"a displacement of {int(np.max(p.disp))} is "
+                             f"past its table's {1 << p.lg_r} slots: K2's "
+                             "record needs every one below them")
         disp = -1 if p.disp is None else put_words(p.disp)
         keys = put_words(p.keys)
         rows.append((p.mul, p.lg_b, p.lg_r, disp, keys,
@@ -126,7 +136,43 @@ def pack_walk(probes: list[FlatProbe | None], device) -> Packed:
     words = np.concatenate(parts).view(np.int32)
     return Packed(arena=torch.from_numpy(words).to(device),
                   desc=torch.from_numpy(desc_array(rows)).to(device),
-                  rows=rows, derived={"table_ends": ends})
+                  rows=rows, derived={"table_ends": ends},
+                  records=torch.from_numpy(walk_records(rows)).to(device))
+
+
+def walk_records(rows: list[tuple[int, ...]]) -> np.ndarray:
+    """K2's records, int32[nsteps + 1, RECORD_WORDS], from :func:`pack_walk`'s
+    rows (entry, entry_final, then main, odd, even a step): record 0 is the
+    entry's iteration (main = row 0, odd absent, even = row 1), record t >= 1
+    step t - 1's (rows 3t - 1, 3t, 3t + 1), so a lane at iteration t reads
+    its three probes as three 16-byte words at 48 t bytes. A probe is
+    ``[mul, key_off, val_off, meta]``, ``meta = lg_b | lg_r << 8`` with
+    :data:`DISP_BIT` where the table has displacements and
+    :data:`PRESENT_BIT`; an absent probe is four zeros (the card reads slot
+    0 of word 0 for it and ignores what it reads). The displacements'
+    offset is not stored: the layout puts them just before the keys, padded
+    to 16 bytes, at ``key_off - max(2^lg_b, 4)``. The card takes a
+    displacement below 2^lg_r, which :func:`pack_walk` checks. Raises
+    ValueError on a table whose fields do not fit the record: lg_b or lg_r
+    outside 0..31."""
+    def probe(row) -> list[int]:
+        if row is None or not row[6]:
+            return [0, 0, 0, 0]
+        mul, lg_b, lg_r, disp_off, key_off, val_off = row[:6]
+        if not (0 <= lg_b < 32 and 0 <= lg_r < 32):
+            raise ValueError(f"a walk table with lg_b {lg_b} and lg_r {lg_r} "
+                             "does not fit K2's record (both below 32)")
+        meta = lg_b | lg_r << 8 | PRESENT_BIT
+        if disp_off >= 0:
+            assert disp_off == key_off - max(1 << lg_b, 4), row
+            meta |= DISP_BIT
+        return [mul, key_off, val_off, meta]
+
+    triples = [(rows[0], None, rows[1])] + [
+        rows[r:r + 3] for r in range(2, len(rows), 3)]
+    words = [sum((probe(r) for r in t), []) for t in triples]
+    return (np.array(words, np.int64).astype(np.uint32).view(np.int32)
+            .reshape(-1, RECORD_WORDS))
 
 
 def build_walk_tables(automaton: Automaton) -> WalkTables | None:

@@ -112,12 +112,13 @@ cudaError_t block_walk_launch(int device, const void* data, int32_t n,
                               int32_t words, int32_t resident,
                               const void* desc, int32_t nsteps, int32_t look,
                               int32_t cap, void* out, Launch* l);
-// walk.cu: K2 over the same walk tables; its walk steps and lane slots
+// walk.cu: K2 over the same walk tables, found by their records
+// (backends/walk_tables.py::walk_records); its walk steps and lane slots
 // added to the int64 counters[0] and counters[1], or null
 cudaError_t walk_launch(int device, const void* data, int32_t n,
                         const void* pos, const void* count, int32_t cap,
                         const void* arena, int32_t words, int32_t resident,
-                        const void* desc, int32_t nsteps, void* out,
+                        const void* records, int32_t nsteps, void* out,
                         void* counters, Launch* l);
 // csr_walk.cu
 cudaError_t csr_walk_launch(int device, const void* data, int32_t n,

@@ -67,7 +67,8 @@ struct Spec {
   const void* sieve_arena;
   const void* sieve_desc;
   const void* walk_arena;   // K2's and K3's (backends/walk_tables.py)
-  const void* walk_desc;
+  const void* walk_desc;    // K3's
+  const void* walk_records; // K2's
   const void* csr_arena;
   const void* csr_desc;
   void* counters;     // int64[5]: survivors, dense blocks (compact_scan),
@@ -156,7 +157,7 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
       if (sp.tier == kWalkTables)
         err = pfac::walk_launch(sp.device, data, n, pos, total, sp.capacity,
                                 sp.walk_arena, sp.walk_words, sp.k2_resident,
-                                sp.walk_desc, sp.walk_nsteps, match,
+                                sp.walk_records, sp.walk_nsteps, match,
                                 walk_counts, kernel());
       else
         err = pfac::csr_walk_launch(sp.device, data, n, pos, total,

@@ -51,7 +51,15 @@
 //   (entry_final, even), and at a step the odd probe on its first three
 //   bytes; the three probes' slots are taken first, so a step is two
 //   dependent loads deep;
-// * the descriptor rows in shared memory, a row read as two 16-byte words;
+// * a record a loop iteration in shared memory (backends/walk_tables.py::
+//   walk_records, derived from the descriptor rows K3 reads): its three
+//   probes as three 16-byte words, with the table sizes as powers of two
+//   and flags, so a probe runs no branch (rec_probe). Lanes of a warp sit
+//   at different steps and so probe different kinds of table (with and
+//   without displacements, absent); the kernel is bound by the
+//   instructions its warps issue, and a branch on the kind made a warp
+//   issue each kind's path in turn. An absent probe reads a valid slot
+//   and its result is ignored; a displacement load is predicated off;
 // * the walk tables in the layout K3 reads too
 //   (backends/walk_tables.py::pack_walk): in row order, displacements and
 //   keys as 32-bit words, values as 16-bit half-words (the encoding keeps
@@ -61,7 +69,7 @@
 //   B and leave the tables of depth >= 32 to L1/L2, where at density most
 //   warps' iterations wait on a lane);
 // * tables resident by depth: their first `resident` words (all of them
-//   where they fit beside the descriptor rows, else the longest prefix of
+//   where they fit beside the records, else the longest prefix of
 //   whole tables that does, backends/walk.py::launch_plan, down to none)
 //   arrive in shared memory by one bulk copy while each lane fetches its
 //   first survivor; a probe past the prefix reads L1/L2 (__ldg). A CTA
@@ -84,7 +92,6 @@
 #include <type_traits>
 
 #include "launch.cuh"
-#include "probe.cuh"
 #include "walk_common.cuh"
 
 namespace {
@@ -97,20 +104,40 @@ constexpr int kHeader = 16;                   // the tables' mbarrier
 // (up to 227 KB) would take longer than its few walks.
 constexpr int32_t kStageMin = 256;
 
-// Descriptor row `row` from shared memory, as two 16-byte words.
-__device__ __forceinline__ pfac::Probe row_probe(const int32_t* sdesc,
-                                                 int row) {
-  const int4* r = reinterpret_cast<const int4*>(sdesc + row * pfac::kDescWords);
-  const int4 u = r[0], v = r[1];
-  pfac::Probe p;
-  p.mul = static_cast<uint32_t>(u.x);
-  p.lg_b = u.y;
-  p.lg_r = u.z;
-  p.disp_off = u.w;
-  p.key_off = v.x;
-  p.val_off = v.y;
-  p.present = v.z;
-  return p;
+constexpr int kRecordWords = 12;              // three probes of 4 words
+constexpr uint32_t kDispBit = 1u << 16;       // walk_tables.DISP_BIT
+constexpr uint32_t kPresentBit = 1u << 24;    // walk_tables.PRESENT_BIT
+
+// A record's probe (walk_tables.walk_records), one 16-byte word: [mul,
+// key_off, val_off, meta], meta = lg_b | lg_r << 8 | flags. An absent
+// probe is all zeros, so it reads slot 0 of word 0, which a caller's
+// present() test then ignores.
+__device__ __forceinline__ bool present(const int4 r) {
+  return (static_cast<uint32_t>(r.w) & kPresentBit) != 0;
+}
+
+// The key word and the value of probe r's slot for `key`, with no branch:
+// every lane of a warp runs the same instructions whichever table it
+// probes. With B = 2^lg_b and R = 2^lg_r, the product's top lg_b bits are
+// the bucket, umulhi(prod, B), and its next lg_r bits h1, umulhi(prod * B,
+// R) (probe.cuh's shifts and masks as two multiplies); a table without
+// displacements has B = 1, so h1 is the slot. The displacements lie just
+// before the keys, padded to 16 bytes (walk_tables.pack_walk), and are
+// below R, so h1 ^ disp needs no mask.
+template <class Tab>
+__device__ __forceinline__ void rec_probe(const Tab& t, const int4 r,
+                                          uint32_t key, uint32_t* k,
+                                          uint32_t* v) {
+  const uint32_t meta = static_cast<uint32_t>(r.w);
+  const uint32_t b = __funnelshift_l(0u, 1u, meta);          // 2^lg_b
+  const uint32_t rr = __funnelshift_l(0u, 1u, meta >> 8);    // 2^lg_r
+  const uint32_t prod = key * static_cast<uint32_t>(r.x);
+  uint32_t slot = __umulhi(prod * b, rr);
+  uint32_t disp = 0;
+  if (meta & kDispBit) disp = t[r.y - max(b, 4u) + __umulhi(prod, b)];
+  slot ^= disp;
+  *k = t[r.y + slot];
+  *v = t.half(r.z + slot);
 }
 
 // Bytes o and o + 1 of the window as (byte o) << 8 | byte o + 1.
@@ -119,16 +146,18 @@ __device__ __forceinline__ uint32_t pair_be(const pfac::Bytes& w, uint32_t o) {
 }
 
 // Dynamic shared memory, in this order (backends/walk.py::fixed_smem_bytes
-// repeats it): [kHeader: mbarrier][2 + 3 * nsteps descriptor rows]
-// [resident table words]. kAllResident: `resident` covers the whole
-// tables. A value is read as a half-word at its row's val_off
-// (walk_common.cuh::walk_val).
+// repeats its size): [kHeader: mbarrier][resident table words, to 16
+// bytes][nsteps + 1 records]. The tables first: at a fixed offset a table
+// word's address is its index times 4 from the base, where behind the
+// records the compiler rebuilt the records' size into every one of a
+// step's nine addresses. kAllResident: `resident` covers the whole tables.
+// A value is read as a half-word at its probe's val_off.
 template <bool kAllResident>
 __global__ void __launch_bounds__(kThreads, 1)
 walk_kernel(const uint8_t* __restrict__ data, int32_t n,
             const int32_t* __restrict__ pos, const int32_t* __restrict__ count,
             int32_t cap, const int32_t* __restrict__ arena, int32_t resident,
-            const int32_t* __restrict__ desc, int32_t nsteps,
+            const int32_t* __restrict__ records, int32_t nsteps,
             int32_t* __restrict__ out,
             unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -147,12 +176,12 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
   auto has = [&](int32_t k) { return k < mine && at(k) < total; };
   if (!kAllResident && mine < kStageMin) resident = 0;
   const int tid = threadIdx.x;
-  const int32_t nrows = 2 + 3 * nsteps;
+  const int32_t rec_words = (nsteps + 1) * kRecordWords;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  int32_t* sdesc = reinterpret_cast<int32_t*>(smem + kHeader);
-  uint32_t* tab = reinterpret_cast<uint32_t*>(sdesc + nrows * pfac::kDescWords);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + kHeader);
+  int32_t* srec = reinterpret_cast<int32_t*>(tab + ((resident + 3) & ~3));
 
-  // 1. the tables and descriptors on their way
+  // 1. the tables and records on their way
   if (tid == 0) {
     pfac::mbar_init(bar);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -166,8 +195,8 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
   }
   for (int32_t q = bulk_words + tid; q < resident; q += kThreads)
     tab[q] = static_cast<uint32_t>(__ldg(arena + q));
-  for (int32_t q = tid; q < nrows * pfac::kDescWords; q += kThreads)
-    sdesc[q] = __ldg(desc + q);
+  for (int32_t q = tid; q < rec_words; q += kThreads)
+    srec[q] = __ldg(records + q);
 
   // 2. the lane's first survivor, in flight while the tables arrive;
   // p_next is the one after the current, loaded a walk ahead
@@ -187,7 +216,7 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
     p = __ldg(pos + at(k));
     begin();
   }
-  __syncthreads();                              // sdesc, tab's last words
+  __syncthreads();                              // srec, tab's last words
   const unsigned walkers = __ballot_sync(kFull, has(k));   // the warp's
   // without counters this is the CTA's last barrier
   if (!has(k) && counters == nullptr) return;
@@ -200,38 +229,24 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
     if constexpr (kAllResident) tb = Tab{tab};
     else tb = Tab{tab, arena, static_cast<uint32_t>(resident)};
 
-    // 3. one step of the lane's walk an iteration. t == 0 is the entry
-    // (rows 0, 1; bytes 2, 3 after the two standing in for the state);
-    // t >= 1 is step t - 1 (main 3t - 1, odd 3t, even 3t + 1; depth d)
+    // 3. one step of the lane's walk an iteration, its probes record t's.
+    // t == 0 is the entry (main: entry, no odd, even: entry_final; bytes
+    // 2, 3 after the two standing in for the state); t >= 1 is step t - 1
+    // (depth d)
     for (;;) {
       const int32_t d = 2 + 2 * t;
-      const int srow = t == 0 ? 0 : 3 * t - 1;
-      const pfac::Probe sp = row_probe(sdesc, srow);
-      const pfac::Probe op = row_probe(sdesc, srow + 1);
-      const pfac::Probe ep = row_probe(sdesc, t == 0 ? 1 : srow + 2);
+      const int4* rec = reinterpret_cast<const int4*>(srec + t * kRecordWords);
+      const int4 rs = rec[0], ro = rec[1], re = rec[2];
       const uint32_t o = w.seek(data + p + d, end);
       const uint32_t mkey = (state << 16) | pair_be(w, o);
       const uint32_t okey = mkey >> 8;            // state << 8 | byte d
-      const bool s_on = t == 0 || sp.present;     // the entry row always
-      const bool o_on = t > 0 && op.present;
-      const bool e_on = s_on && ep.present;       // no main: the walk ends
-      uint32_t ss = 0, so = 0, se = 0;
-      if (s_on) ss = pfac::probe_slot(tb, sp, mkey);
-      if (o_on) so = pfac::probe_slot(tb, op, okey);
-      if (e_on) se = pfac::probe_slot(tb, ep, mkey);
-      uint32_t ks = 0, vs = 0, ko = 0, vo = 0, ke = 0, ve = 0;
-      if (s_on) {
-        ks = pfac::walk_key(tb, sp, ss);
-        vs = pfac::walk_val(tb, sp, ss);
-      }
-      if (o_on) {
-        ko = pfac::walk_key(tb, op, so);
-        vo = pfac::walk_val(tb, op, so);
-      }
-      if (e_on) {
-        ke = pfac::walk_key(tb, ep, se);
-        ve = pfac::walk_val(tb, ep, se);
-      }
+      const bool s_on = present(rs);              // the entry always
+      const bool o_on = present(ro);              // never at the entry
+      const bool e_on = s_on && present(re);      // no main: the walk ends
+      uint32_t ks, vs, ko, vo, ke, ve;
+      rec_probe(tb, rs, mkey, &ks, &vs);
+      rec_probe(tb, ro, okey, &ko, &vo);
+      rec_probe(tb, re, mkey, &ke, &ve);
       if (o_on && rd > d && ko == okey) match = vo;
       if (e_on && rd > d + 1 && ke == mkey) match = ve;
       const bool alive = s_on && rd > d + 1 && ks == mkey;
@@ -264,7 +279,8 @@ walk_kernel(const uint8_t* __restrict__ data, int32_t n,
 }
 
 int64_t smem_bytes(int32_t nsteps, int32_t resident) {
-  return kHeader + 4LL * pfac::kDescWords * (2 + 3 * nsteps) + 4LL * resident;
+  return kHeader + 4LL * ((resident + 3) & ~3) +
+         4LL * kRecordWords * (nsteps + 1);
 }
 
 const void* kernel_of(bool all) {
@@ -279,7 +295,8 @@ const void* kernel_of(bool all) {
 // cap), each < n; out: int32[>= n]; arena: the walk tables
 // (backends/walk_tables.py::pack_walk), int32[words], 16-byte aligned, its
 // first `resident` words (any prefix, 0 included) staged in shared memory;
-// desc: their 2 + 3 * nsteps rows (values' offsets in half-words);
+// records: int32[nsteps + 1][12], their K2 records
+// (backends/walk_tables.py::walk_records);
 // counters: int64[2] the walk steps and the lane slots are added to, or
 // null. Else cudaErrorInvalidValue; a
 // prefix that does not fit shared memory fails the launch. One launch,
@@ -287,7 +304,7 @@ const void* kernel_of(bool all) {
 cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
                               const void* pos, const void* count, int32_t cap,
                               const void* arena, int32_t words,
-                              int32_t resident, const void* desc,
+                              int32_t resident, const void* records,
                               int32_t nsteps, void* out, void* counters,
                               Launch* l) {
   *l = Launch{};
@@ -304,16 +321,16 @@ cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
   const auto* ps = static_cast<const int32_t*>(pos);
   const auto* c = static_cast<const int32_t*>(count);
   const auto* a = static_cast<const int32_t*>(arena);
-  const auto* ds = static_cast<const int32_t*>(desc);
+  const auto* rs = static_cast<const int32_t*>(records);
   auto* o = static_cast<int32_t*>(out);
   auto* ct = static_cast<unsigned long long*>(counters);
   const auto g = static_cast<unsigned>(grid);
   if (all)
     l->set(walk_kernel<true>, g, kThreads, smem, d, n, ps, c, cap, a,
-           resident, ds, nsteps, o, ct);
+           resident, rs, nsteps, o, ct);
   else
     l->set(walk_kernel<false>, g, kThreads, smem, d, n, ps, c, cap, a,
-           resident, ds, nsteps, o, ct);
+           resident, rs, nsteps, o, ct);
   return cudaSuccess;
 }
 
@@ -322,13 +339,13 @@ cudaError_t pfac::walk_launch(int device, const void* data, int32_t n,
 extern "C" int pfac_walk(int device, const void* data, int32_t n,
                          const void* pos, const void* count, int32_t cap,
                          const void* arena, int32_t words, int32_t resident,
-                         const void* desc, int32_t nsteps, void* out,
+                         const void* records, int32_t nsteps, void* out,
                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   pfac::Launch l;
   err = pfac::walk_launch(device, data, n, pos, count, cap, arena, words,
-                          resident, desc, nsteps, out, nullptr, &l);
+                          resident, records, nsteps, out, nullptr, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

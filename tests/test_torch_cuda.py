@@ -1644,6 +1644,70 @@ def test_k2_image_whole_and_split(dev, plan, corpus):
     assert c[key] == c["launch.program"] == calls and c[other] == 0
 
 
+def _slots_plain(each: torch.Tensor, grid: int) -> int:
+    """K2's ``walk_slots`` for survivors that take ``each`` loop iterations,
+    recounted from csrc/walk.cu's dealing: runs of 32 consecutive survivors
+    round robin over min(grid, runs) CTAs of 1,024 lanes, a CTA's j-th run
+    in its warp j % 32, survivor i in lane i % 32 of it; a warp spends 32
+    slots an iteration of its busiest lane."""
+    total = each.numel()
+    if total == 0:
+        return 0
+    runs = -(-total // 32)
+    ctas = min(grid, runs)
+    i = torch.arange(total)
+    r = i // 32
+    lane = (r % ctas) * 1024 + (r // ctas) % 32 * 32 + i % 32
+    sums = torch.zeros(ctas * 1024, dtype=torch.int64).index_add_(
+        0, lane, each.cpu())
+    return 32 * int(sums.view(-1, 32).max(1).values.sum())
+
+
+@pytest.mark.parametrize("case", ["virus_dense_worst", "pattern_stream_64MB",
+                                  "defcon_like", "f1_split", "unaligned"])
+def test_k2_records_equal_the_plain_walk(dev, case):
+    # K2 reads a loop iteration's three probes from its record: through its
+    # wrapper and inside a program it equals the plain walk (which reads
+    # the descriptor rows) on the Snort-like set's own patterns
+    # concatenated (8 and 64 MiB), on text with 1.5% planted copies, on the
+    # F1 set's split tables (walk_kernel<false>) and on a view 3 bytes in;
+    # the program's walk steps and lane slots equal a host recount
+    pats = _f1_patterns() if case == "f1_split" else \
+        rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    resident = walk.launch_plan(eng._walk, dev)[1]
+    assert (resident < eng._walk.arena.numel()) == (case == "f1_split")
+    rng = np.random.default_rng(43)
+    n = {"pattern_stream_64MB": 64 << 20, "defcon_like": 32 << 20}.get(
+        case, 8 << 20)
+    offset = 3 if case == "unaligned" else 0
+    host = (rulesets.planted_text(rng, pats, n + offset, 0.015)
+            if case == "defcon_like"
+            else rulesets.pattern_stream(rng, pats, n + offset))
+    d = torch.from_numpy(host).to(dev)[offset:]
+    npad = npad_for(n)
+    match, bits, counts = sieve.sieve(d, n, npad, eng._sieve)
+    thresh = pipeline.threshold(eng._walk, eng.tile_rows * 128)
+    pos, cnt = compact.compact(bits, counts, thresh)
+    exact = compact.compact_plain(bits, counts, thresh)
+    assert torch.equal(pos[:int(cnt)], exact) and exact.numel() > 1000
+    out_k, out_p = match.clone(), match.clone()
+    walk.walk(d, n, pos, out_k, eng._walk, cnt)
+    walk.walk_plain(d, n, exact, out_p, eng._walk)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p) and not torch.equal(out_k, match)
+    m.match_device(d)
+    trace.reset()
+    res = m.match_device(d)
+    c = m.counters()
+    assert torch.equal(res, pipeline.run(d, n, npad, eng._sieve, eng._walk,
+                                         plain=True))
+    each = walk.walk_steps_each_plain(d, n, exact, eng._walk)
+    assert c["walk_steps"] == int(each.sum())
+    assert c["walk_slots"] == _slots_plain(each, walk.grid(eng._walk, dev))
+
+
 def test_a_new_length_builds_one_program(dev):
     pats, rng = _ruleset(65)
     m = pt.Matcher(pats, device=dev)

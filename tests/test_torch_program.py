@@ -186,8 +186,8 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     geo = program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(8 << 20),
                            BLOCK, card, shards=3, count=True)
     prog = program.Program(geo, eng._sieve, eng._walk, eng._csr, card)
-    # 20 int32 fields, 7 int64 fields, 7 pointers
-    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 7 * 8
+    # 20 int32 fields, 7 int64 fields, 8 pointers
+    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 8 * 8
     for field, _ in program.Spec._fields_:
         value = getattr(prog.spec, field)
         if field == "counters":         # the device's words, at the build
@@ -196,7 +196,7 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
             assert value == sieve.PLACEMENTS.index(geo.placement)
         elif field == "tier":
             assert value == program.TIERS.index(geo.tier)
-        elif field.endswith(("_arena", "_desc")):
+        elif field.endswith(("_arena", "_desc", "_records")):
             tabs = {"sieve": eng._sieve, "walk": eng._walk,
                     "csr": eng._csr}[field.split("_")[0]]
             want = None if tabs is None else getattr(

@@ -27,8 +27,10 @@ from pfac_tpu.backends import pallas_walk as W
 from pfac_tpu_torch.backends import block_walk, golden, sieve, walk
 from pfac_tpu_torch.backends.probe import Packed, desc_array
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
-from pfac_tpu_torch.backends.walk_tables import (build_walk_tables,
-                                                 pack_walk, walk_oracle)
+from pfac_tpu_torch.backends.walk_tables import (DISP_BIT, PRESENT_BIT,
+                                                 build_walk_tables,
+                                                 pack_walk, walk_oracle,
+                                                 walk_records, wprobe)
 from pfac_tpu_torch.core import Automaton
 from pfac_tpu_torch.experiments import rulesets
 
@@ -220,11 +222,23 @@ def _f1_patterns():
             for _ in range(17000)]
 
 
+def _small_patterns():
+    """40 random patterns of 4-12 bytes: every walk table holds at most 64
+    keys, so every one is displacement-free."""
+    rng = np.random.default_rng(40)
+    return [bytes(rng.integers(0, 256, size=int(rng.integers(4, 13)),
+                               dtype=np.uint8)) for _ in range(40)]
+
+
 IMAGE_SETS = {
     "snort": rulesets.snort_like_patterns,
     "f1": _f1_patterns,
     "steps": lambda: STEP_PATS,
     "snort_3000": lambda: rulesets.snort_like_patterns(seed=7, k=3000),
+    "aaaa": lambda: [b"aaaa"],
+    "nodisp": _small_patterns,
+    # step 0 has neither an odd nor an even table; its last step has a main
+    "no_odd_even": lambda: [b"abcdefgh", b"abcdwxyz", b"qwer"],
 }
 
 
@@ -326,17 +340,101 @@ def test_image_refuses_a_value_past_16_bits():
                 pack_walk(swapped, "cpu")
 
 
+ABSENT = (0, 0, 0, -1, -1, -1, 0)
+
+
+def _decode_records(records: torch.Tensor) -> list[list[tuple]]:
+    """K2's records unpacked as csrc/walk.cu's rec_probe and present()
+    unpack them: a record a loop iteration, three probes of (mul, lg_b,
+    lg_r, disp_off, key_off, val_off, present); a probe without the present
+    bit is absent, whatever the card reads for it."""
+    words = records.numpy().view(np.uint32).reshape(-1, 3, 4)
+    out = []
+    for rec in words:
+        probes = []
+        for mul, key, val, meta in (map(int, q) for q in rec):
+            if not meta & PRESENT_BIT:
+                assert (mul, key, val, meta) == (0, 0, 0, 0)
+                probes.append(ABSENT)
+                continue
+            lg_b, lg_r = meta & 31, (meta >> 8) & 31   # the shifts' bits
+            disp = key - max(1 << lg_b, 4) if meta & DISP_BIT else -1
+            probes.append((mul, lg_b, lg_r, disp, key, val, 1))
+        out.append(probes)
+    return out
+
+
+@pytest.mark.parametrize("name", ["snort", "aaaa", "f1", "nodisp",
+                                  "no_odd_even", "steps"])
+def test_records_hold_the_rows(walk_sets, name):
+    # K2's record t holds the three descriptor rows of its loop's
+    # iteration t, probe for probe as the card unpacks them: the entry and
+    # entry_final at t = 0 (no odd), step t - 1's main, odd and even after
+    # it; a record a step and the entry's, 48 bytes each
+    tabs = _tabs(walk_sets, name)
+    rows = [r[:7] for r in tabs.rows]
+    nsteps = walk.steps_of(tabs)
+    got = _decode_records(tabs.records)
+    want = [[rows[0], ABSENT, rows[1]]] + [
+        rows[3 * t - 1: 3 * t + 2] for t in range(1, nsteps + 1)]
+    assert got == want
+    assert tabs.records.shape == (nsteps + 1, 12)
+    assert torch.equal(tabs.records, torch.from_numpy(walk_records(
+        tabs.rows)))
+    assert walk.fixed_smem_bytes(nsteps) == 16 + 48 * (nsteps + 1)
+    present = [r for r in rows if r[6]]
+    disp = {r[3] >= 0 for r in present}
+    steps = [rows[r:r + 3] for r in range(2, len(rows), 3)]
+    if name == "aaaa":
+        assert nsteps == 0 and len(got) == 1
+    elif name == "nodisp":
+        assert disp == {False}
+    elif name == "snort":
+        assert disp == {False, True}
+    elif name == "f1":                  # its three tables, 17,000 keys each
+        assert disp == {True} and len(present) == 3
+    elif name == "no_odd_even":
+        assert not steps[0][1][6] and not steps[0][2][6] and steps[-1][0][6]
+    else:                               # the last step has no main table
+        assert not steps[-1][0][6] and steps[-1][1][6]
+
+
+@pytest.mark.parametrize("field,value", [("lg_b", 32), ("lg_r", 32),
+                                         ("lg_r", -1), ("disp", None)])
+def test_records_refuse_a_table_past_the_record(field, value):
+    # a table whose lg_b or lg_r leaves 0..31 does not fit a record's meta
+    # word, and K2 takes a displacement below the table's slots (it XORs
+    # it into h1 unmasked): pack_walk refuses both, as it refuses a value
+    # past 16 bits; a displacement one below the slots is taken
+    probes = _probes(build_walk_tables(Automaton.from_patterns(STEP_PATS)))
+    table = probes[2]
+    if field == "disp":                 # a table of 100 keys has them
+        table = wprobe(np.arange(100, dtype=np.uint32) * 7919 + 3,
+                       np.arange(100) + 1)
+        assert table.disp is not None
+        disp = table.disp.copy()
+        disp[0] = (1 << table.lg_r) - 1
+        pack_walk(probes[:2] + [dataclasses.replace(table, disp=disp)]
+                  + probes[3:], "cpu")
+        disp[0] = 1 << table.lg_r
+        value = disp
+    swapped = probes[:2] + [dataclasses.replace(table, **{field: value})] \
+        + probes[3:]
+    with pytest.raises(ValueError, match="K2's record"):
+        pack_walk(swapped, "cpu")
+
+
 def test_snort_image_is_whole_in_shared_memory(walk_sets):
     # 32-bit values would make the tables 260,832 B, past K2's budget
-    # beside its descriptor rows, and leave the tables of depth >= 32 to
-    # L1/L2; the layout's 199,856 B fit whole
+    # beside its records, and leave the tables of depth >= 32 to L1/L2;
+    # the layout's 199,856 B fit whole
     eng = _engine(walk_sets, "snort")
     tabs = eng._walk
     nsteps = walk.steps_of(tabs)
     wide = _wide_ends(eng.walk_tables)
     assert 4 * wide[-1] == 260_832
     assert 4 * tabs.arena.numel() == 199_856
-    assert _budget(tabs) == 227_792
+    assert _budget(tabs) == 230_064
     assert walk.launch_plan(tabs, CARD) == (nsteps, tabs.arena.numel())
     assert walk.fixed_smem_bytes(nsteps) + 199_856 <= sieve.SMEM_LIMIT
     assert bisect.bisect_right(wide, _budget(tabs) // 4) == 44
