@@ -2001,13 +2001,25 @@ def main() -> int:
             e._walk, base3.numel() // block_walk.CHUNK, dev)
         tiles3 = len(block_walk.dense_tiles(n, counts3, block))
         k3[nm] = (ms3, plain3, bound3)
+        # K3's counters, added on the card by one program call
+        before3 = trace.device_counters()
+        e.match_device(d[:n])
+        after3 = trace.device_counters()
+        probes3, walked3 = (after3[k] - before3[k] for k in (
+            "block_walk_probes", "block_walk_positions"))
+        want3 = block_walk.block_walk_probes_plain(d, n, counts3, e._walk,
+                                                   block)
+        assert probes3 == want3, (nm, probes3, want3)
+        assert walked3 == sum(min(block, n - b * block) for b in
+                              block_walk._dense(counts3, block).tolist())
         print(f"time K3 block_walk_kernel {nm} {n // MB} MB ({esc3} blocks, "
               f"{tiles3} tiles, {deep3} deep matches; {res3} of "
               f"{e._walk.arena.numel()} table words resident, "
               f"{block_walk.fixed_smem_bytes(nst, cap3) + 4 * res3} B of "
               f"shared memory): {ms3:.4f} ms batched, {prof3:.4f} ms profiler "
-              f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms)  "
-              f"[{name_limit}]")
+              f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms); a program "
+              f"call's block_walk_probes {probes3} (host recount {want3}), "
+              f"block_walk_positions {walked3}  [{name_limit}]")
         del mk3, mp3
     k3_ms, k3_plain, k3_bound = k3["all_match"]
     torch.cuda.empty_cache()

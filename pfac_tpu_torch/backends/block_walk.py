@@ -27,7 +27,11 @@ covers every block here.
 
 :func:`block_walk_plain` walks the dense blocks' positions over the whole
 corpus; :func:`block_walk_tiles_plain` does what the kernel does, tile by
-tile, each from its own slice of ``CHUNK + lookahead`` bytes.
+tile, each from its own slice of ``CHUNK + lookahead`` bytes. Through a
+program K3 counts its probes and the positions it walked on the card
+(``trace``'s ``block_walk_probes`` and ``block_walk_positions``), and
+:func:`block_walk_probes_plain` recounts the probes on the host; the
+wrapper :func:`block_walk` counts nothing.
 """
 from __future__ import annotations
 
@@ -37,11 +41,14 @@ from .. import _build, trace
 from .probe import DESC_WORDS, Packed
 from .sieve import SMEM_LIMIT
 # K3 keeps K2's residency rule: the same tables, the same prefix
-from .walk import resident_words, steps_of, table_ends, walk_plain  # noqa: F401
+from .walk import (alive_trail_plain, resident_words,  # noqa: F401
+                   steps_of, table_ends, walk_plain)
 
 DENSE_ESCAPE_DIV = 4        # as pfac_tpu.backends.pallas_sieve
 CHUNK = 8192                # positions per tile; block % CHUNK == 0
 _PLAIN_CHUNK = 1 << 22      # positions per walk_plain call
+_PROBE_CHUNK = 1 << 18      # positions per call of the probes' recount
+_BATCH = 8                  # positions probed together, as csrc/block_walk.cu
 _WARPS = 16                 # as csrc/block_walk.cu
 _HEADER, _TILE_PAD, _WARP_STAGE = 32, 32, 4 * 512
 
@@ -176,3 +183,53 @@ def escaped_blocks(counts: torch.Tensor, npad: int) -> int:
     """How many blocks the escape walks for these sieve counts."""
     block = npad // counts.shape[0]
     return int((counts >= block // DENSE_ESCAPE_DIV).sum())
+
+
+def block_walk_probes_plain(data: torch.Tensor, n: int, counts: torch.Tensor,
+                            tabs: Packed, block: int) -> int:
+    """The ``block_walk_probes`` a program's K3 adds for one call: the
+    exact-table probes of every position of the tiles it walks (those at
+    and past n too), dealt as ``csrc/block_walk.cu`` deals them. A batch of
+    8 consecutive positions probes the entry table (where the walk has
+    steps) and entry_final (where present), 8 probes each; then each step's
+    odd, main and even tables, those present, 8 probes each, while two or
+    more of the batch are alive, the step whose main table is absent ending
+    after its odd probes; the one left alive then walks on alone, a probe a
+    present table a step, as long as its walk lasts."""
+    nsteps = steps_of(tabs)
+    on = [int(row[6] != 0) for row in tabs.rows]
+    odd, main, even = (torch.tensor([0] + on[k::3][:nsteps], dtype=torch.int64)
+                       for k in (3, 2, 4))
+    # G[s], F[s]: a lone walk's and a batch's probes over steps 0 .. s - 1
+    g = torch.cumsum(odd + main + even, 0)
+    f = _BATCH * g
+    absent = [s for s in range(nsteps) if not on[2 + 3 * s]]
+    stop = absent[0] if absent else None     # no deeper state exists
+    per_batch = _BATCH * ((nsteps > 0) + on[1])
+    tiles = dense_tiles(n, counts, block)
+    total = 0
+    per = _PROBE_CHUNK // CHUNK
+    for i in range(0, len(tiles), per):
+        c0 = torch.tensor(tiles[i:i + per], dtype=torch.int64,
+                          device=data.device)
+        pos = (c0[:, None] + torch.arange(CHUNK, device=data.device)
+               ).reshape(-1)
+        trail = alive_trail_plain(data, n, pos, tabs)
+        batches = pos.numel() // _BATCH
+        total += per_batch * batches
+        if not trail:
+            continue
+        alive = torch.stack(trail).reshape(len(trail), batches, _BATCH).cpu()
+        # a position never comes back to life, so the batch's alive count
+        # falls step by step: it steps batched for k steps, and its longest
+        # walk lasts the steps its last one alive was alive
+        k = (alive.sum(-1) >= 2).sum(0)
+        last = alive.sum(0).max(-1).values
+        if stop is not None and bool((k > stop).any()):
+            reached = k > stop
+            total += int(reached.sum()) * int(
+                f[stop] + _BATCH * odd[stop + 1])
+            k, last = k[~reached], last[~reached]
+        total += int(f[k].sum()) + int((g[torch.maximum(last, k)]
+                                        - g[k]).sum())
+    return total

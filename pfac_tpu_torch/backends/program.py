@@ -29,8 +29,10 @@ launches, the positions it scans and, on the walk-table tier, whether its
 K2 holds the whole walk tables, ``walk.whole_calls`` or ``walk.split_calls``,
 are that count times its fixed lists, expanded where the counters are
 read). Its ``compact_scan_kernel`` adds the call's survivors and escaped
-blocks, its K1 the short probes, and its K2 the walk steps and lane slots,
-to the device's counter words (``trace.device_buffer``), on the card.
+blocks, its K1 the short probes, its K2 the walk steps and lane slots, and
+its K3 its probes and the positions it walked, to the device's counter
+words (``trace.device_buffer``), on the card, each at the word the
+:class:`Spec` gives it (:func:`counter_words`).
 
 Only CUDA tensors reach a program: ``pipeline.run`` and the per-kernel
 wrappers stay the CPU path and the program's reference on the card. A
@@ -63,13 +65,36 @@ class Spec(ctypes.Structure):
         "device", "shards", "npad", "block", "nblocks",
         "placement", "sieve_words", "res_off", "tier", "thresh", "capacity",
         "walk_words", "walk_nsteps", "look", "tile_cap", "k3_resident",
-        "k2_resident", "csr_nsteps", "reduce", "count")] + [
+        "k2_resident", "csr_nsteps", "reduce", "count", "scan_word",
+        "short_probes_word", "walk_word", "block_walk_word")] + [
         (name, ctypes.c_int64) for name in (
             "shard_bytes", "bits_at", "counts_at", "offsets_at", "pos_at",
             "match_at", "count_at")] + [
         (name, ctypes.c_void_p) for name in (
             "sieve_arena", "sieve_desc", "walk_arena", "walk_desc",
             "walk_records", "csr_arena", "csr_desc", "counters")]
+
+
+#: the Spec's field for each kernel's first counter word, and the keys of
+#: ``trace.DEVICE_KEYS`` the kernel adds to from there on, in order
+COUNTERS = {"scan_word": ("survivors", "blocks_escaped"),
+            "short_probes_word": ("short_probes",),
+            "walk_word": ("walk_steps", "walk_slots"),
+            "block_walk_word": ("block_walk_probes", "block_walk_positions")}
+
+
+def counter_words() -> dict[str, int]:
+    """Each kernel's first word in the device's counters, from the order of
+    ``trace.DEVICE_KEYS``; raises where a kernel's keys are not next to
+    each other there."""
+    keys = trace.DEVICE_KEYS
+    out = {}
+    for field, want in COUNTERS.items():
+        at = keys.index(want[0])
+        if keys[at:at + len(want)] != want:
+            raise ValueError(f"trace.DEVICE_KEYS must hold {want} in a row")
+        out[field] = at
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +221,8 @@ class Program:
             walk_arena=_ptr(walk_tabs, "arena"),
             walk_desc=_ptr(walk_tabs, "desc"),
             walk_records=_ptr(walk_tabs, "records"),
-            csr_arena=_ptr(csr_tabs, "arena"), csr_desc=_ptr(csr_tabs, "desc"))
+            csr_arena=_ptr(csr_tabs, "arena"), csr_desc=_ptr(csr_tabs, "desc"),
+            **counter_words())
         self.spec = Spec(**fields)
         # the tables stay alive as long as the program that points at them
         self._tables = (sieve_tabs, walk_tabs, csr_tabs)

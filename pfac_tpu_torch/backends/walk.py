@@ -164,10 +164,22 @@ def walk_steps_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
     return int(walk_steps_each_plain(data, n, pos, tabs, count).sum())
 
 
+def alive_trail_plain(data: torch.Tensor, n: int, pos: torch.Tensor,
+                      tabs: Packed) -> list[torch.Tensor]:
+    """For each step the plain walk reaches with a position alive, which of
+    `pos` are alive as it starts (a bool tensor a step, in `pos`'s order):
+    K3 steps a batch of positions as long as two of them are."""
+    trail: list[torch.Tensor] = []
+    _plain(data, n, pos, tabs, None, trail)
+    return trail
+
+
 def _plain(data: torch.Tensor, n: int, pos: torch.Tensor, tabs: Packed,
-           count: torch.Tensor | None):
+           count: torch.Tensor | None, trail: list | None = None):
     """The plain walk -> (positions as int64, the longest match of >= 4
-    bytes at each (0: none), K2's loop iterations for each)."""
+    bytes at each (0: none), K2's loop iterations for each). With `trail`,
+    appends for each step the walk reaches with a position alive which
+    positions are alive as it starts (a bool tensor a step)."""
     if count is not None:
         pos = pos[:int(count)]
     p = pos.to(torch.int64)
@@ -200,6 +212,8 @@ def _plain(data: torch.Tensor, n: int, pos: torch.Tensor, tabs: Packed,
         alive = state != DEAD
         if not bool(alive.any()):
             break                       # a DEAD state never hits again
+        if trail is not None:
+            trail.append(alive)
         iters += alive
         d = 4 + 2 * s
         c1 = byte(d)

@@ -59,7 +59,15 @@
 //   leave as 128-byte warp stores, each word predicated on match != 0;
 // * the grid size (an occupancy query) and the shared-memory attribute are
 //   cached on the host per device and shared-memory size
-//   (walk_common.cuh, shared with K2 and the CSR walk).
+//   (walk_common.cuh, shared with K2 and the CSR walk);
+// * given a program's counter words, it counts its own work there: the
+//   exact-table probes it issued (block_walk_probes: kBatch a batched
+//   probe, a dead position's included, and one a probe of walk_tail) and
+//   the positions below n of the tiles it walked (block_walk_positions).
+//   A thread sums its probes in a register; a CTA that walked a tile adds
+//   both with one atomic each, so a corpus without a dense block pays
+//   nothing more. The per-kernel entry point passes null and counts
+//   nothing.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,7 +87,7 @@ constexpr int kPer = 16;                      // positions per thread
 constexpr int kBatch = 8;                     // positions probed together
 constexpr int kChunk = kThreads * kPer;       // positions per tile: 8,192
 constexpr int kWarpPos = 32 * kPer;
-constexpr int kHeader = 32;                   // three mbarriers
+constexpr int kHeader = 32;                   // three mbarriers, the probes
 constexpr int kTilePad = 32;                  // alignment offset + over-read
 
 using pfac::bulk_copy;
@@ -129,14 +137,15 @@ __device__ __forceinline__ void probe_batch(const Tab& t,
 
 // One position's walk from step `st` on, as walk.cu's walk_position steps:
 // `state` its live state, `match` its longest match so far, `bytes` its
-// first byte in the tile, rd = n - position. -> the longest match. A step's
-// three probes are independent, so their slots are taken first: a step is
-// two dependent loads deep.
+// first byte in the tile, rd = n - position. -> (the longest match, the
+// probes issued). A step's three probes are independent, so their slots are
+// taken first: a step is two dependent loads deep.
 template <class Tab>
-__device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
-                                           int32_t nsteps, int32_t st,
-                                           uint32_t state, uint32_t match,
-                                           const uint8_t* bytes, int32_t rd) {
+__device__ __noinline__ uint2 walk_tail(Tab t, const int32_t* sdesc,
+                                        int32_t nsteps, int32_t st,
+                                        uint32_t state, uint32_t match,
+                                        const uint8_t* bytes, int32_t rd) {
+  uint32_t probes = 0;
   for (; st < nsteps && state != kDead; ++st) {
     const int32_t d = 4 + 2 * st;
     const pfac::Probe main = smem_probe(sdesc, 2 + 3 * st);
@@ -149,6 +158,7 @@ __device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
     if (odd.present) so = pfac::probe_slot(t, odd, okey);
     if (main.present) sm = pfac::probe_slot(t, main, mkey);
     if (even.present) se = pfac::probe_slot(t, even, mkey);
+    probes += (odd.present != 0) + (main.present != 0) + (even.present != 0);
     if (odd.present && rd > d && pfac::walk_key(t, odd, so) == okey)
       match = pfac::walk_val(t, odd, so);
     if (!main.present) break;
@@ -158,7 +168,7 @@ __device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
       match = pfac::walk_val(t, even, se);
     state = hit ? next : kDead;
   }
-  return match;
+  return make_uint2(match, probes);
 }
 
 // kBatch consecutive positions whose first byte is the tile's byte `off`;
@@ -166,12 +176,12 @@ __device__ __noinline__ uint32_t walk_tail(Tab t, const int32_t* sdesc,
 // match of >= 4 bytes at position j, else 0. The steps go batched while at
 // least two of the positions are alive: a dead one still costs its probes
 // there. The last one alive (a long pattern among short ones) goes on
-// alone in walk_tail().
+// alone in walk_tail(). Adds the probes it issued to `probes`.
 template <class Tab>
 __device__ __forceinline__ void walk_batch(
     const Tab& t, const pfac::Probe& entry, const pfac::Probe& entry_final,
     const int32_t* sdesc, int32_t nsteps, const uint32_t* tile32, int32_t off,
-    int32_t rd, uint32_t (&match)[kBatch]) {
+    int32_t rd, uint32_t (&match)[kBatch], uint32_t& probes) {
   constexpr int kWin = kBatch / 4 + 1;    // words holding kBatch + 3 bytes
   uint32_t v[kWin], key[kBatch], val[kBatch], state[kBatch];
   bool hit[kBatch];
@@ -189,12 +199,14 @@ __device__ __forceinline__ void walk_batch(
   }
   if (nsteps > 0) {                 // without steps no one reads the state
     probe_batch(t, entry, key, val, hit);
+    probes += kBatch;
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
       if (hit[j] && rd - j > 3) state[j] = val[j];
   }
   if (entry_final.present) {
     probe_batch(t, entry_final, key, val, hit);
+    probes += kBatch;
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
       if (hit[j] && rd - j > 3) match[j] = val[j];
@@ -218,6 +230,7 @@ __device__ __forceinline__ void walk_batch(
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) key[j] = (state[j] << 8) | c1[j];
       probe_batch(t, odd, key, val, hit);
+      probes += kBatch;
 #pragma unroll
       for (int j = 0; j < kBatch; ++j)
         if (hit[j] && state[j] != kDead && rd - j > d) match[j] = val[j];
@@ -234,11 +247,13 @@ __device__ __forceinline__ void walk_batch(
     uint32_t next[kBatch];
     bool alive[kBatch];
     probe_batch(t, main, key, next, alive);
+    probes += kBatch;
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
       alive[j] = alive[j] && state[j] != kDead && rd - j > d + 1;
     if (even.present) {
       probe_batch(t, even, key, val, hit);
+      probes += kBatch;
 #pragma unroll
       for (int j = 0; j < kBatch; ++j)
         if (hit[j] && state[j] != kDead && rd - j > d + 1) match[j] = val[j];
@@ -258,9 +273,11 @@ __device__ __forceinline__ void walk_batch(
     }
   }
   if (last >= 0) {
-    last_match = walk_tail(
+    const uint2 tail = walk_tail(
         t, sdesc, nsteps, st, last_state, last_match,
         reinterpret_cast<const uint8_t*>(tile32) + off + last, rd - last);
+    last_match = tail.x;
+    probes += tail.y;
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
       if (j == last) match[j] = last_match;
@@ -268,10 +285,11 @@ __device__ __forceinline__ void walk_batch(
 }
 
 // Dynamic shared memory, in this order (backends/block_walk.py::
-// fixed_smem_bytes repeats it): [kHeader: mbarriers][2 tiles of kChunk +
-// look + kTilePad bytes][kWarps * 512 staging words][desc rows][cap tile
-// numbers][resident table words]. kAllResident: `resident` covers the
+// fixed_smem_bytes repeats it): [kHeader: mbarriers, the CTA's probes][2
+// tiles of kChunk + look + kTilePad bytes][kWarps * 512 staging words][desc
+// rows][cap tile numbers][resident table words]. kAllResident: `resident` covers the
 // whole tables, and every probe reads shared memory without a test.
+// counters: int64[2], the probes and the positions walked, or null.
 template <bool kAllResident>
 __global__ void __launch_bounds__(kThreads)
 block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
@@ -279,13 +297,17 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
                   int32_t block, int32_t thresh,
                   const int32_t* __restrict__ arena, int32_t resident,
                   const int32_t* __restrict__ desc, int32_t nsteps,
-                  int32_t look, int32_t cap, int32_t* __restrict__ out) {
+                  int32_t look, int32_t cap, int32_t* __restrict__ out,
+                  unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int32_t s_warp[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int32_t tile_bytes = kChunk + look + kTilePad;
   const int32_t nrows = 2 + 3 * nsteps;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // tile 0, tile 1, tables
+  // the CTA's probes, in the header's last word (no static shared memory:
+  // the tables' prefix may fill the rest)
+  auto* cta_probes = reinterpret_cast<unsigned long long*>(bars + 3);
   uint8_t* tiles = smem + kHeader;
   uint32_t* stage_bufs = reinterpret_cast<uint32_t*>(tiles + 2 * tile_bytes);
   int32_t* sdesc = reinterpret_cast<int32_t*>(stage_bufs + kWarps * kWarpPos);
@@ -333,6 +355,7 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
     mbar_init(bars + 1);
     mbar_init(bars + 2);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    *cta_probes = 0;
   }
   __syncthreads();
   const int32_t bulk_words = resident & ~3;
@@ -387,6 +410,8 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
   uint32_t* stage_buf = stage_bufs + warp * kWarpPos;
   const int swz = (lane >> 1) & 15;
   uint32_t parity = 0;                          // bit b: buffer b's phase
+  uint32_t probes = 0;                          // the thread's
+  int64_t walked = 0;                           // positions < n, the CTA's
   for (int32_t i = 0; i < mine; ++i) {
     const int buf = i & 1;
     // every thread is done with tile i - 1: its buffer may be refilled;
@@ -404,11 +429,12 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
         reinterpret_cast<const uint32_t*>(tiles + buf * tile_bytes);
     const int32_t lp = tid * kPer;              // first position in the tile
     const int32_t rd = static_cast<int32_t>(n - c0) - lp;
+    walked += n - c0 < kChunk ? n - c0 : kChunk;
 #pragma unroll
     for (int j0 = 0; j0 < kPer; j0 += kBatch) {
       uint32_t m[kBatch];
       walk_batch(t, entry, entry_final, sdesc, nsteps, tile32, a + lp + j0,
-                 rd - j0, m);
+                 rd - j0, m, probes);
 #pragma unroll
       for (int j = 0; j < kBatch; ++j)   // row `lane`, column (j0 + j) ^ swz
         stage_buf[lane * kPer + ((j0 + j) ^ swz)] = m[j];
@@ -423,6 +449,16 @@ block_walk_kernel(const uint8_t* __restrict__ data, int32_t n,
           stage_buf[(2 * k + (lane >> 4)) * kPer + ((lane & 15) ^ k)];
       if (mv != 0) dst[k * 32 + lane] = static_cast<int32_t>(mv);
     }
+  }
+  if (counters == nullptr || walked == 0) return;   // uniform
+  unsigned long long sum = probes;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) sum += __shfl_down_sync(kFull, sum, s);
+  if (lane == 0) atomicAdd(cta_probes, sum);
+  __syncthreads();
+  if (tid == 0) {
+    atomicAdd(counters, *cta_probes);
+    atomicAdd(counters + 1, static_cast<unsigned long long>(walked));
   }
 }
 
@@ -442,15 +478,16 @@ int64_t smem_bytes(int32_t nsteps, int32_t look, int32_t cap,
 // (resident <= words); desc: 2 + 3 * nsteps rows (values' offsets in
 // half-words); look: the walk's lookahead in bytes, a multiple of 16, >= 4
 // + 2 * nsteps; cap: room for a CTA's tile numbers, a multiple of 4, cap *
-// SMs >= nblocks * block / 8192. Else cudaErrorInvalidValue; a prefix that
-// does not fit shared memory fails the launch.
+// SMs >= nblocks * block / 8192; counters: int64[2] the probes and the
+// positions walked are added to, or null. Else cudaErrorInvalidValue; a
+// prefix that does not fit shared memory fails the launch.
 cudaError_t pfac::block_walk_launch(int device, const void* data, int32_t n,
                                     const void* counts, int32_t nblocks,
                                     int32_t block, int32_t thresh,
                                     const void* arena, int32_t words,
                                     int32_t resident, const void* desc,
                                     int32_t nsteps, int32_t look, int32_t cap,
-                                    void* out, Launch* l) {
+                                    void* out, void* counters, Launch* l) {
   *l = Launch{};
   if (resident > words || block <= 0 || block % kChunk != 0 || nblocks < 0 || n < 0 ||
       nsteps < 0 || resident < 0 || cap < 4 || cap % 4 != 0 || look % 16 != 0 ||
@@ -473,18 +510,19 @@ cudaError_t pfac::block_walk_launch(int device, const void* data, int32_t n,
   const auto* a = static_cast<const int32_t*>(arena);
   const auto* ds = static_cast<const int32_t*>(desc);
   auto* o = static_cast<int32_t*>(out);
+  auto* ct = static_cast<unsigned long long*>(counters);
   const auto g = static_cast<unsigned>(grid);
   if (all)
     l->set(block_walk_kernel<true>, g, kThreads, smem, d, n, c, nblocks,
-           block, thresh, a, resident, ds, nsteps, look, cap, o);
+           block, thresh, a, resident, ds, nsteps, look, cap, o, ct);
   else
     l->set(block_walk_kernel<false>, g, kThreads, smem, d, n, c, nblocks,
-           block, thresh, a, resident, ds, nsteps, look, cap, o);
+           block, thresh, a, resident, ds, nsteps, look, cap, o, ct);
   return cudaSuccess;
 }
 
-// As block_walk_launch; launches on `stream` and returns the launch's
-// cudaError_t.
+// As block_walk_launch, counting nothing; launches on `stream` and returns
+// the launch's cudaError_t.
 extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
                                const void* counts, int32_t nblocks,
                                int32_t block, int32_t thresh,
@@ -497,7 +535,7 @@ extern "C" int pfac_block_walk(int device, const void* data, int32_t n,
   pfac::Launch l;
   err = pfac::block_walk_launch(device, data, n, counts, nblocks, block,
                                 thresh, arena, words, resident, desc, nsteps,
-                                look, cap, out, &l);
+                                look, cap, out, nullptr, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(l.launch(static_cast<cudaStream_t>(stream)));
 }

@@ -105,13 +105,15 @@ cudaError_t compact_launch(const void* bits, const void* counts,
                            const void* offsets, int32_t nblocks, int32_t block,
                            int32_t thresh, void* pos, Launch* l);
 // block_walk.cu: K3 over the walk tables (arena, desc: values in 16 bits,
-// backends/walk_tables.py::pack_walk)
+// backends/walk_tables.py::pack_walk); its probes and the positions it
+// walked added to the int64 counters[0] and counters[1], or null
 cudaError_t block_walk_launch(int device, const void* data, int32_t n,
                               const void* counts, int32_t nblocks,
                               int32_t block, int32_t thresh, const void* arena,
                               int32_t words, int32_t resident,
                               const void* desc, int32_t nsteps, int32_t look,
-                              int32_t cap, void* out, Launch* l);
+                              int32_t cap, void* out, void* counters,
+                              Launch* l);
 // walk.cu: K2 over the same walk tables, found by their records
 // (backends/walk_tables.py::walk_records); its walk steps and lane slots
 // added to the int64 counters[0] and counters[1], or null

@@ -61,6 +61,9 @@ struct Spec {
   int32_t walk_words, walk_nsteps, look, tile_cap, k3_resident, k2_resident;
   int32_t csr_nsteps;
   int32_t reduce, count;                       // 0 or 1
+  // each kernel's first word in `counters` (backends/program.py::
+  // counter_words, from the order of trace.DEVICE_KEYS)
+  int32_t scan_word, short_probes_word, walk_word, block_walk_word;
   int64_t shard_bytes, bits_at, counts_at, offsets_at, pos_at;
   int64_t match_at;   // -1: the match is the result (shard s at s * npad)
   int64_t count_at;   // the count word's offset in the result (count = 1)
@@ -71,8 +74,9 @@ struct Spec {
   const void* walk_records; // K2's
   const void* csr_arena;
   const void* csr_desc;
-  void* counters;     // int64[5]: survivors, dense blocks (compact_scan),
-                      // short probes (K1), walk steps, lane slots (K2)
+  void* counters;     // int64 words: survivors and dense blocks
+                      // (compact_scan), short probes (K1), walk steps and
+                      // lane slots (K2), probes and positions (K3); or null
 };
 
 // What changes from call to call.
@@ -125,8 +129,9 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
     const void* data = reinterpret_cast<const void*>(in.data[s]);
     const int32_t n = in.n[s];
     int64_t* const words = static_cast<int64_t*>(sp.counters);
-    void* short_probes = words == nullptr ? nullptr : words + 2;
-    void* walk_counts = words == nullptr ? nullptr : words + 3;
+    auto word = [&](int32_t at) -> void* {
+      return words == nullptr ? nullptr : words + at;
+    };
     cudaError_t err;
     out.push_back(memset_step(s, counts, sp.nblocks + 1));
     auto kernel = [&]() -> pfac::Launch* {
@@ -137,18 +142,19 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
     err = pfac::sieve_launch(sp.device, data, n, sp.npad, sp.sieve_arena,
                              sp.sieve_words, sp.res_off, sp.sieve_desc,
                              sp.placement, match, bits, counts, sp.block,
-                             short_probes, kernel());
+                             word(sp.short_probes_word), kernel());
     if (err != cudaSuccess) return err;
     if (sp.tier == kWalkTables) {
       err = pfac::block_walk_launch(
           sp.device, data, n, counts, sp.nblocks, sp.block, sp.thresh,
           sp.walk_arena, sp.walk_words, sp.k3_resident, sp.walk_desc,
-          sp.walk_nsteps, sp.look, sp.tile_cap, match, kernel());
+          sp.walk_nsteps, sp.look, sp.tile_cap, match,
+          word(sp.block_walk_word), kernel());
       if (err != cudaSuccess) return err;
     }
     if (sp.tier != kSieveOnly) {
       err = pfac::compact_scan_launch(counts, sp.nblocks, sp.thresh, offsets,
-                                      sp.counters, kernel());
+                                      word(sp.scan_word), kernel());
       if (err != cudaSuccess) return err;
       err = pfac::compact_launch(bits, counts, offsets, sp.nblocks, sp.block,
                                  sp.thresh, pos, kernel());
@@ -158,7 +164,7 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
         err = pfac::walk_launch(sp.device, data, n, pos, total, sp.capacity,
                                 sp.walk_arena, sp.walk_words, sp.k2_resident,
                                 sp.walk_records, sp.walk_nsteps, match,
-                                walk_counts, kernel());
+                                word(sp.walk_word), kernel());
       else
         err = pfac::csr_walk_launch(sp.device, data, n, pos, total,
                                     sp.capacity, sp.csr_arena, sp.csr_desc,
@@ -254,7 +260,10 @@ bool valid(const Spec& sp) {
          sp.nblocks == sp.npad / sp.block && sp.tier >= kSieveOnly &&
          sp.tier <= kCsr && (sp.reduce == 0 || sp.shards == 1) &&
          (sp.count == 0 || sp.count_at >= 0) &&
-         (sp.reduce == 0 || sp.match_at >= 0);
+         (sp.reduce == 0 || sp.match_at >= 0) &&
+         (sp.counters == nullptr ||
+          (sp.scan_word >= 0 && sp.short_probes_word >= 0 &&
+           sp.walk_word >= 0 && sp.block_walk_word >= 0));
 }
 
 }  // namespace

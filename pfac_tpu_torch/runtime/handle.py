@@ -233,10 +233,12 @@ class Matcher:
         """The port's counters (``trace.counters``: launches, positions
         scanned, K2's whole and split calls, programs built, set-up
         seconds, span totals while profiled)
-        and the device counters (``survivors``, ``blocks_escaped``,
-        ``short_probes``, ``walk_steps``, ``walk_slots``), read now. They
-        are the process's: every handle adds to them. A key never counted
-        reads 0. This read, and no call, waits for the card."""
+        and the device counters (``trace.DEVICE_KEYS``: ``survivors``,
+        ``blocks_escaped``, ``short_probes``, ``walk_steps``,
+        ``walk_slots``, ``block_walk_probes``, ``block_walk_positions``),
+        read now. They are the process's: every handle adds to them. A key
+        never counted reads 0. This read, and no call, waits for the
+        card."""
         out = trace.counters()
         out.update(trace.device_counters())
         return out

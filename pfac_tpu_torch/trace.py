@@ -39,7 +39,7 @@ to ``span.<name>.calls`` and ``span.<name>.s``.
   their copy to the device.
 
 **Device counters** (:func:`device_counters`): every program on a device
-adds to that device's five int64 words on the card (no graph node, no
+adds to that device's seven int64 words on the card (no graph node, no
 host wait): ``survivors``, the positions K1 let through to the walker (the
 scan's total), and ``blocks_escaped``, the blocks K3 walked whole, one
 atomic each a call from ``compact_scan_kernel``; ``short_probes``, the m2
@@ -48,10 +48,15 @@ first byte starts a 2- or 3-byte pattern), one atomic a CTA of K1;
 ``walk_steps``, the loop iterations in which a lane of K2 had a walk (the
 entry probe counts as one: the walk work the survivors needed), and
 ``walk_slots``, each of K2's warps' iterations times 32 (the lane slots
-its grid spent), one atomic each a CTA of K2. K3 and the CSR walk count
-no steps, and the per-kernel wrappers count nothing. Reading them copies
-five words a device to the host, the one read here that waits for the
-card.
+its grid spent), one atomic each a CTA of K2; ``block_walk_probes``, the
+exact-table probes K3 issued (a dead position's in a batch included: the
+work its batching spends), and ``block_walk_positions``, the positions
+below n of the tiles K3 walked, one atomic each a CTA of K3 that walked
+a tile. The CSR walk counts no steps, and the per-kernel wrappers count
+nothing. Each kernel finds its words by their offsets in the program's
+``Spec`` (``backends/program.py::counter_words``), so their order is
+written here alone. Reading them copies the words of each device to the
+host, the one read here that waits for the card.
 """
 from __future__ import annotations
 
@@ -64,11 +69,11 @@ import torch
 from torch.autograd import profiler as _prof
 
 DEVICE_KEYS = ("survivors", "blocks_escaped", "short_probes", "walk_steps",
-               "walk_slots")
+               "walk_slots", "block_walk_probes", "block_walk_positions")
 
 _COUNTS: defaultdict = defaultdict(int)
 _TALLIES: dict[tuple, "Tally"] = {}
-_DEVICE: dict[int, torch.Tensor] = {}      # device index -> int64[5]
+_DEVICE: dict[int, torch.Tensor] = {}      # device index -> int64[7]
 _SPAN_KEYS: dict[str, tuple[str, str]] = {}
 
 
@@ -121,7 +126,7 @@ def launches(*kernels: str) -> dict[str, int]:
 
 
 def device_buffer(device: torch.device) -> torch.Tensor:
-    """The device's counter words (int64[5], :data:`DEVICE_KEYS`), made
+    """The device's counter words (int64[7], :data:`DEVICE_KEYS`), made
     zero at the first use; they live as long as the process."""
     index = device.index or 0
     buf = _DEVICE.get(index)

@@ -1725,3 +1725,77 @@ def test_a_new_length_builds_one_program(dev):
     m.match_reduce_device(data[:1 << 20])           # the reduce's own
     assert built() == before + 1
     assert trace.counters()["build.program_s"] > 0
+
+
+def _k3_cases():
+    """(name, patterns, host bytes, view offset) for K3's counters: all-match
+    (a view too), dense blocks of 'a' with the last one cut by n, and the
+    Snort-scale set, whose walk tables K3 holds only in part."""
+    snort = rulesets.snort_like_patterns() + [b"zzzz", b"zzzzzzzz"]
+    cut = _dense_corpus(3 * 65536 + 3 * 8192 + 3)
+    cut[3 * 65536:] = ord("a")          # the last block dense, cut by n
+    return [("all_match", [b"aaaa"], np.full(3 * 65536 + 1111, ord("a"),
+                                             np.uint8), 0),
+            ("all_match_view", [b"aaaa"], np.full(3 * 65536 + 1114,
+                                                  ord("a"), np.uint8), 3),
+            ("dense_cut", [b"aaaa", b"aaaab", b"a" * 40, b"ab", b"a",
+                           b"aaab" * 5], cut, 0),
+            ("snort_mixed", snort, rulesets.mixed_density(
+                np.random.default_rng(5), snort, (4 << 20) + 12345,
+                sieve.BLOCK), 0)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _k3_cases()])
+def test_block_walk_counters_equal_a_host_recount(dev, case):
+    # K3's probes and positions, added on the card by every program call,
+    # equal the host's recount (block_walk.block_walk_probes_plain) and the
+    # escaped blocks' positions below n; the per-kernel wrapper adds none
+    _, pats, host, offset = next(c for c in _k3_cases() if c[0] == case)
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    d = torch.from_numpy(host).to(dev)[offset:]
+    n = d.shape[0]
+    npad, block = npad_for(n), sieve.BLOCK
+    _, _, counts = sieve.sieve(d, n, npad, eng._sieve)
+    dense = block_walk._dense(counts, block).tolist()
+    escaped = block_walk.escaped_blocks(counts, npad)
+    walked = sum(min(block, n - b * block) for b in dense)
+    probes = block_walk.block_walk_probes_plain(d, n, counts, eng._walk, block)
+    assert escaped == len(dense) >= 1 and probes >= walked > 0
+    if case.startswith("all_match"):
+        assert walked == escaped * block == 3 * block and probes == walked
+    if case == "dense_cut":
+        assert dense[-1] == 3 and walked == 65536 + 3 * 8192 + 3
+    m.match_device(d)
+    trace.reset()
+    calls = 2
+    for _ in range(calls):
+        res = m.match_device(d)
+    c = m.counters()
+    assert torch.equal(res, pipeline.run(d, n, npad, eng._sieve, eng._walk,
+                                         plain=True))
+    assert c["blocks_escaped"] == calls * escaped
+    assert c["block_walk_positions"] == calls * walked
+    assert c["block_walk_positions"] <= c["blocks_escaped"] * block
+    assert c["block_walk_probes"] == calls * probes
+    match, _, counts = sieve.sieve(d, n, npad, eng._sieve)
+    block_walk.block_walk(d, n, counts, match, eng._walk)
+    after = m.counters()
+    assert (after["block_walk_probes"], after["block_walk_positions"]) == (
+        c["block_walk_probes"], c["block_walk_positions"])
+
+
+def test_block_walk_counters_stay_zero_without_a_dense_block(dev):
+    # the text cells' traffic: K3 launches in every program call, finds no
+    # dense block and adds nothing, while the compaction counts survivors
+    pats = rulesets.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    d = torch.from_numpy(rulesets.planted_text(
+        np.random.default_rng(41), pats, 3 << 20, 0.015)).to(dev)
+    m.match_device(d)
+    trace.reset()
+    m.match_device(d)
+    c = m.counters()
+    assert c["launch.block_walk_kernel"] == 1 and c["blocks_escaped"] == 0
+    assert c["survivors"] > 0 and c["walk_steps"] > 0
+    assert c["block_walk_probes"] == c["block_walk_positions"] == 0

@@ -13,6 +13,7 @@ import pfac_tpu_torch as pt
 from pfac_tpu.backends import golden
 from pfac_tpu_torch.backends import block_walk, compact, pipeline, sieve
 from pfac_tpu_torch.backends.sieve_matcher import npad_for
+from pfac_tpu_torch.backends.walk_tables import DEAD, build_walk_tables
 
 BLOCK = 8192
 
@@ -147,3 +148,103 @@ def test_block_walk_plain_clears_only_dense_blocks():
     assert pos.tolist() == want.tolist() and dense.any()
     with pytest.raises(ValueError):
         block_walk.block_walk(t, n, counts[:3], match, eng._walk)
+
+
+def _alive_steps(wt, data: bytes, n: int, p: int) -> list[bool]:
+    """Whether position p's walk is alive as each step starts, stepped one
+    table at a time on the host tables."""
+    out = [False] * len(wt.steps)
+    if n - p < 4:
+        return out
+    hit, state = wt.entry.lookup(int.from_bytes(data[p:p + 4], "big"))
+    if not hit:
+        return out
+    for i, s in enumerate(wt.steps):
+        out[i] = True
+        if s.main is None:
+            break
+        d = s.depth
+        b = [data[p + d + j] if p + d + j < n else 0 for j in (0, 1)]
+        hit, state = s.main.lookup((state << 16) | (b[0] << 8) | b[1])
+        if not hit or n - p <= d + 1 or state == DEAD:
+            break
+    return out
+
+
+def _k3_probes_by_hand(wt, data: bytes, n: int, tiles: list[int]) -> int:
+    """csrc/block_walk.cu's probes, its control flow written out: a batch
+    of 8 positions, its entry probes, its steps while two are alive, then
+    the last one alive alone."""
+    steps = wt.steps
+    total = 0
+    for c0 in tiles:
+        for b0 in range(c0, c0 + block_walk.CHUNK, 8):
+            alive = [_alive_steps(wt, data, n, p) for p in range(b0, b0 + 8)]
+            total += 8 * ((len(steps) > 0) + (wt.entry_final is not None))
+            st, ended = 0, False
+            while st < len(steps) and sum(a[st] for a in alive) >= 2:
+                s = steps[st]
+                total += 8 * (s.odd is not None)
+                if s.main is None:
+                    ended = True
+                    break
+                total += 8 * (1 + (s.even is not None))
+                st += 1
+            lone = [a for a in alive if st < len(steps) and a[st]]
+            while not ended and lone and st < len(steps) and lone[0][st]:
+                s = steps[st]
+                total += sum(t is not None for t in (s.odd, s.main, s.even))
+                ended = s.main is None
+                st += 1
+    return total
+
+
+@pytest.mark.parametrize("case", ["all_match", "mixed"])
+def test_block_walk_probes_plain_recounts_the_kernels_dealing(case):
+    # K3's probes as its program counts them (block_walk_probes), recounted
+    # vectorised, equal its control flow written out position by position;
+    # on all-match (aaaa: no steps) one entry_final probe a position of the
+    # three dense blocks, the last block's 1,108 survivors too few
+    if case == "all_match":
+        pats, data = [b"aaaa"], b"a" * (3 * BLOCK + 1111)
+    else:
+        pats, data = _mixed()
+    m = pt.Matcher(pats, device="cpu", tile=BLOCK)
+    eng = m._engine()
+    n = len(data)
+    npad = npad_for(n, eng.tile_rows)
+    t = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    _, _, counts = sieve.sieve(t, n, npad, eng._sieve, BLOCK)
+    got = block_walk.block_walk_probes_plain(t, n, counts, eng._walk, BLOCK)
+    tiles = block_walk.dense_tiles(n, counts, BLOCK)
+    assert got == _k3_probes_by_hand(build_walk_tables(m.automaton), data, n,
+                                     tiles)
+    walked = len(tiles) * block_walk.CHUNK
+    if case == "all_match":
+        assert block_walk.steps_of(eng._walk) == 0
+        assert len(tiles) == 3 and got == walked == 3 * BLOCK
+    else:
+        assert len(tiles) == 1 and got > 2 * walked
+
+
+def test_block_walk_probes_plain_counts_the_lone_walk():
+    # a run of z's ends in a batch: its last alive position walks on alone
+    # (walk_tail), a probe a present table a step, and the positions past
+    # n are probed as the kernel probes them
+    pats = [b"zzzz", b"z" * 12, b"z" * 20 + b"y"]
+    d = np.zeros(BLOCK + 100, np.uint8)
+    d[:BLOCK - 4] = ord("z")         # a batch starts 12 z's before its end
+    data = d.tobytes()
+    m = pt.Matcher(pats, device="cpu", tile=BLOCK)
+    eng = m._engine()
+    n = len(data)
+    t = torch.from_numpy(d.copy())
+    _, _, counts = sieve.sieve(t, n, npad_for(n, eng.tile_rows), eng._sieve,
+                               BLOCK)
+    tiles = block_walk.dense_tiles(n, counts, BLOCK)
+    assert tiles == [0]
+    got = block_walk.block_walk_probes_plain(t, n, counts, eng._walk, BLOCK)
+    assert got == _k3_probes_by_hand(build_walk_tables(m.automaton), data, n,
+                                     tiles)
+    # below the batched steps: 8 a table, a batch's 8 positions each time
+    assert got % 8 != 0

@@ -19,6 +19,8 @@ its non-sieve cases), and the sieve and sharded matchers on the CPU still
 run ``pipeline.run``, never a program. Integers compare exactly.
 """
 import ctypes
+import os
+import re
 
 import numpy as np
 import pytest
@@ -186,8 +188,8 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     geo = program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(8 << 20),
                            BLOCK, card, shards=3, count=True)
     prog = program.Program(geo, eng._sieve, eng._walk, eng._csr, card)
-    # 20 int32 fields, 7 int64 fields, 8 pointers
-    assert ctypes.sizeof(program.Spec) == 20 * 4 + 7 * 8 + 8 * 8
+    # 24 int32 fields, 7 int64 fields, 8 pointers
+    assert ctypes.sizeof(program.Spec) == 24 * 4 + 7 * 8 + 8 * 8
     for field, _ in program.Spec._fields_:
         value = getattr(prog.spec, field)
         if field == "counters":         # the device's words, at the build
@@ -196,6 +198,8 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
             assert value == sieve.PLACEMENTS.index(geo.placement)
         elif field == "tier":
             assert value == program.TIERS.index(geo.tier)
+        elif field.endswith("_word"):   # the kernels' counter words
+            assert value == program.counter_words()[field], field
         elif field.endswith(("_arena", "_desc", "_records")):
             tabs = {"sieve": eng._sieve, "walk": eng._walk,
                     "csr": eng._csr}[field.split("_")[0]]
@@ -213,6 +217,41 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     assert red.kernels == {**dict.fromkeys(tier_kernels, 1),
                            "reduce_kernel": 1, "reduce_tail_kernel": 1}
     assert not red.handle               # built at the first call, on a card
+
+
+def _c_spec_fields() -> list[str]:
+    """The field names of ``struct Spec`` in csrc/program.cu, in order."""
+    path = os.path.join(os.path.dirname(program.__file__), os.pardir, "csrc",
+                        "program.cu")
+    with open(path) as f:
+        body = re.search(r"struct Spec \{(.*?)\n\};", f.read(), re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in body.split(";"):
+        words = decl.replace("*", " ").replace(",", " , ").split()
+        if words:       # the type, then names (`const void*` is one type)
+            names = " ".join(words).split(" , ")
+            out.append(names[0].split()[-1])
+            out += [nm.strip() for nm in names[1:]]
+    return out
+
+
+def test_counter_words_follow_the_device_keys(monkeypatch):
+    # each kernel's counter words are where trace.DEVICE_KEYS puts its
+    # keys, handed to C in the Spec, whose fields are the C struct's in
+    # order; a key order that parts a kernel's two words is refused
+    words = program.counter_words()
+    assert set(words) == set(program.COUNTERS)
+    for field, keys in program.COUNTERS.items():
+        at = words[field]
+        assert trace.DEVICE_KEYS[at:at + len(keys)] == keys
+    assert words["block_walk_word"] == 5 and len(trace.DEVICE_KEYS) == 7
+    assert _c_spec_fields() == [f for f, _ in program.Spec._fields_]
+    monkeypatch.setattr(trace, "DEVICE_KEYS", (
+        "survivors", "blocks_escaped", "short_probes", "walk_steps",
+        "block_walk_probes", "walk_slots", "block_walk_positions"))
+    with pytest.raises(ValueError, match="in a row"):
+        program.counter_words()
 
 
 @pytest.mark.parametrize("name,key", [("snort", "walk.whole_calls"),

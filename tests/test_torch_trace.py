@@ -119,7 +119,9 @@ def test_counters_count_time_and_reset():
     assert not any(trace.counters().values()) and t.calls == 0
     assert trace.device_counters() == {"survivors": 0, "blocks_escaped": 0,
                                        "short_probes": 0, "walk_steps": 0,
-                                       "walk_slots": 0}
+                                       "walk_slots": 0,
+                                       "block_walk_probes": 0,
+                                       "block_walk_positions": 0}
 
 
 def test_handle_counters_read_the_set_up():
