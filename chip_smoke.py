@@ -1156,7 +1156,7 @@ def program_phase(dev, name_limit, corpora) -> dict:
                               offsets.data_ptr(), None, stream)
         lib.pfac_compact(0, bits.data_ptr(), counts.data_ptr(),
                          offsets.data_ptr(), nblocks, block, thresh,
-                         pos.data_ptr(), stream)
+                         pos.data_ptr(), None, stream)
         lib.pfac_walk(0, d.data_ptr(), n, pos.data_ptr(),
                       total, cap, wt.arena.data_ptr(),
                       wt.arena.numel(), k2_res, wt.records.data_ptr(), nsteps,

@@ -42,8 +42,9 @@ _SIGNATURES = {
                    _I, _P],
     # device, counts, nblocks, thresh, offsets, counters, stream
     "pfac_compact_scan": [ctypes.c_int, _P, _I, _I, _P, _P, _P],
-    # device, bits, counts, offsets, nblocks, block, thresh, pos, stream
-    "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P],
+    # device, bits, counts, offsets, nblocks, block, thresh, pos, counters,
+    # stream
+    "pfac_compact": [ctypes.c_int, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # device, result, npad, ids, pos, count, status, nstatus, epoch, stream
     "pfac_reduce": [ctypes.c_int, _P, _I, _P, _P, _P, _P, ctypes.c_int64,
                     ctypes.c_uint32, _P],

@@ -23,6 +23,12 @@ from .sieve import unpack_bits
 #: only where the kernels run)
 KERNELS = ("compact_scan_kernel", "compact_kernel")
 
+#: ``compact_kernel`` lists a warp's round (its run of bitmap words, up to
+#: 8 chunks of 32 words) lane by lane where the round holds at most
+#: ROUND_MAX set bits, a denser round word by word (``kRoundMax`` in
+#: ``csrc/compact.cu``)
+ROUND_MAX = 509
+
 
 def _check(bits: torch.Tensor, counts: torch.Tensor) -> int:
     for name, t in (("bits", bits), ("counts", counts)):
@@ -47,15 +53,18 @@ def capacity(nblocks: int, block: int, thresh: int) -> int:
     return nblocks * max(0, min(thresh - 1, block))
 
 
-def compact(bits: torch.Tensor, counts: torch.Tensor,
-            thresh: int) -> tuple[torch.Tensor, torch.Tensor]:
+def compact(bits: torch.Tensor, counts: torch.Tensor, thresh: int,
+            counters: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (pos, count): the positions of the set bits of `bits` (bit j of
     word w: position 32w + j), ascending, int32, without the blocks whose
     count is at least `thresh`, in pos[:count]; count is a 1-element int32
     tensor on the bits' device. `counts[b]` must be block b's number of set
     bits. A CPU tensor runs the plain version (pos is exact); a CUDA tensor
     launches the kernels into a buffer of :func:`capacity` positions, whose
-    words past the count are undefined, and reads nothing back."""
+    words past the count are undefined, and reads nothing back; given
+    `counters` (int64[1] on that device), ``compact_kernel`` adds to it the
+    chunks it listed word by word (:func:`wordwise_chunks_plain`)."""
     block = _check(bits, counts)
     dev = bits.device
     if dev.type == "cpu":
@@ -63,6 +72,8 @@ def compact(bits: torch.Tensor, counts: torch.Tensor,
         return pos, torch.tensor([pos.shape[0]], dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"no compaction for device {dev}")
+    if bits.data_ptr() % 16:           # the kernel loads 16 B a lane
+        bits = bits.clone()
     nblocks = counts.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
@@ -75,7 +86,9 @@ def compact(bits: torch.Tensor, counts: torch.Tensor,
                       device=dev)
     rc = lib.pfac_compact(dev.index or 0, bits.data_ptr(), counts.data_ptr(),
                           offsets.data_ptr(), nblocks, block, thresh,
-                          pos.data_ptr(), stream)
+                          pos.data_ptr(),
+                          None if counters is None else counters.data_ptr(),
+                          stream)
     trace.count("launch.compact_kernel")
     _build.check(rc, "compact_kernel")
     return pos, offsets[nblocks:]
@@ -88,3 +101,22 @@ def compact_plain(bits: torch.Tensor, counts: torch.Tensor,
     flags = unpack_bits(bits).view(counts.shape[0], -1)
     flags[counts >= thresh] = 0
     return torch.nonzero(flags.view(-1)).reshape(-1).to(torch.int32)
+
+
+def wordwise_chunks_plain(bits: torch.Tensor, counts: torch.Tensor,
+                          thresh: int) -> int:
+    """The 32-word chunks of the bitmap that ``compact_kernel`` lists word
+    by word (the device counter ``compact_wordwise_chunks`` of one program
+    call): in the blocks it lists (0 < count < `thresh`), a warp takes a run
+    of block / 256 words in rounds of up to 8 chunks; the nonempty chunks of
+    a round of more than :data:`ROUND_MAX` set bits."""
+    block = _check(bits, counts)
+    chunks = block // 8192                      # a warp's run
+    sums = unpack_bits(bits).view(counts.shape[0], 8, chunks, 1024).sum(
+        3, dtype=torch.int32)
+    rounds = torch.arange(chunks, device=bits.device) // 8
+    totals = torch.zeros(*sums.shape[:2], -(-chunks // 8),
+                         dtype=torch.int32, device=bits.device).index_add_(
+                             2, rounds, sums)[:, :, rounds]
+    listed = ((counts > 0) & (counts < thresh))[:, None, None]
+    return int(((sums > 0) & (totals > ROUND_MAX) & listed).sum())

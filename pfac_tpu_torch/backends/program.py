@@ -30,7 +30,8 @@ K2 holds the whole walk tables, ``walk.whole_calls`` or ``walk.split_calls``,
 are that count times its fixed lists, expanded where the counters are
 read). Its ``compact_scan_kernel`` adds the call's survivors and escaped
 blocks, its K1 the short probes, its K2 the walk steps and lane slots, and
-its K3 its probes and the positions it walked, to the device's counter
+its K3 its probes and the positions it walked, and its ``compact_kernel``
+the chunks it listed word by word, to the device's counter
 words (``trace.device_buffer``), on the card, each at the word the
 :class:`Spec` gives it (:func:`counter_words`).
 
@@ -66,7 +67,8 @@ class Spec(ctypes.Structure):
         "placement", "sieve_words", "res_off", "tier", "thresh", "capacity",
         "walk_words", "walk_nsteps", "look", "tile_cap", "k3_resident",
         "k2_resident", "csr_nsteps", "reduce", "count", "scan_word",
-        "short_probes_word", "walk_word", "block_walk_word")] + [
+        "short_probes_word", "walk_word", "block_walk_word",
+        "compact_word")] + [
         (name, ctypes.c_int64) for name in (
             "shard_bytes", "bits_at", "counts_at", "offsets_at", "pos_at",
             "match_at", "count_at")] + [
@@ -80,7 +82,8 @@ class Spec(ctypes.Structure):
 COUNTERS = {"scan_word": ("survivors", "blocks_escaped"),
             "short_probes_word": ("short_probes",),
             "walk_word": ("walk_steps", "walk_slots"),
-            "block_walk_word": ("block_walk_probes", "block_walk_positions")}
+            "block_walk_word": ("block_walk_probes", "block_walk_positions"),
+            "compact_word": ("compact_wordwise_chunks",)}
 
 
 def counter_words() -> dict[str, int]:

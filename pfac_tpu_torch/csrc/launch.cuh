@@ -97,13 +97,16 @@ cudaError_t sieve_launch(int device, const void* data, int32_t n, int32_t npad,
                          const void* desc, int32_t placement, void* match,
                          void* bits, void* counts, int32_t block,
                          void* short_probes, Launch* l);
-// compact.cu
+// compact.cu: the scan's survivors and dense blocks added to the int64
+// counters[0] and counters[1], the chunks compact_kernel listed word by
+// word to its counters[0], or null
 cudaError_t compact_scan_launch(const void* counts, int32_t nblocks,
                                 int32_t thresh, void* offsets, void* counters,
                                 Launch* l);
 cudaError_t compact_launch(const void* bits, const void* counts,
                            const void* offsets, int32_t nblocks, int32_t block,
-                           int32_t thresh, void* pos, Launch* l);
+                           int32_t thresh, void* pos, void* counters,
+                           Launch* l);
 // block_walk.cu: K3 over the walk tables (arena, desc: values in 16 bits,
 // backends/walk_tables.py::pack_walk); its probes and the positions it
 // walked added to the int64 counters[0] and counters[1], or null

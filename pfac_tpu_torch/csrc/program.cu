@@ -63,7 +63,8 @@ struct Spec {
   int32_t reduce, count;                       // 0 or 1
   // each kernel's first word in `counters` (backends/program.py::
   // counter_words, from the order of trace.DEVICE_KEYS)
-  int32_t scan_word, short_probes_word, walk_word, block_walk_word;
+  int32_t scan_word, short_probes_word, walk_word, block_walk_word,
+      compact_word;
   int64_t shard_bytes, bits_at, counts_at, offsets_at, pos_at;
   int64_t match_at;   // -1: the match is the result (shard s at s * npad)
   int64_t count_at;   // the count word's offset in the result (count = 1)
@@ -76,7 +77,8 @@ struct Spec {
   const void* csr_desc;
   void* counters;     // int64 words: survivors and dense blocks
                       // (compact_scan), short probes (K1), walk steps and
-                      // lane slots (K2), probes and positions (K3); or null
+                      // lane slots (K2), probes and positions (K3), chunks
+                      // listed word by word (compact); or null
 };
 
 // What changes from call to call.
@@ -157,7 +159,8 @@ cudaError_t plan(const Spec& sp, const Inputs& in, std::vector<Step>& out) {
                                       word(sp.scan_word), kernel());
       if (err != cudaSuccess) return err;
       err = pfac::compact_launch(bits, counts, offsets, sp.nblocks, sp.block,
-                                 sp.thresh, pos, kernel());
+                                 sp.thresh, pos, word(sp.compact_word),
+                                 kernel());
       if (err != cudaSuccess) return err;
       const void* total = offsets + 4LL * sp.nblocks;   // on the device
       if (sp.tier == kWalkTables)

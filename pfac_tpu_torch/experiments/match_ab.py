@@ -1,6 +1,6 @@
 """Same-card A/B of ``match_device`` between checkouts of the repository.
 
-    python -m pfac_tpu_torch.experiments.match_ab [--backend xla|k1|k2] DIR_A DIR_B [DIR ...]
+    python -m pfac_tpu_torch.experiments.match_ab [--backend xla|k1|k2|compact] DIR_A DIR_B [DIR ...]
 
 Each argument is the root of a checkout (this one is ``.``). The script runs
 one worker process per argument, in the order given, so a call such as
@@ -44,6 +44,20 @@ batches of 10 ``walk.walk`` calls), a fingerprint, and, on a tree that
 counts them, the walk steps and lane slots of one call (``walk_steps``,
 ``walk_slots``) and whether its K2 held the walk tables whole in
 shared memory (``whole_calls``, ``split_calls``: 1 or 0; ``null``
+elsewhere).
+
+``--backend compact`` times ``compact_kernel`` where the compaction
+lists: the Snort set on the 64 MiB pattern stream of ``--backend k2``
+(the ``snort2k.virus_dense_64MB`` cell's recipe), on its 192 MiB of the
+cells' text, and ``aaaa`` on 100 MiB of ``a`` (every block escaped), and
+there again through the compaction's wrapper with the escape disarmed
+(``"disarmed": true``: every position listed, as on the CSR tier). A line
+a case: the profiler's device ms of ``compact_kernel`` inside a program
+call (median over 20 calls; the wrapper's launch on the disarmed line) and
+of each other kernel, the survivors, a fingerprint of the positions the
+wrapper lists (``pos[:count]``: their number and a sum weighted by their
+index, so the order counts), and, on a tree that counts them, the chunks
+one program call listed word by word (``wordwise_chunks``; ``null``
 elsewhere).
 
 ``--backend xla`` times the lockstep walker instead
@@ -388,6 +402,71 @@ def k2_worker(tree: str, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _positions_fingerprint(pos, count) -> list[int]:
+    import torch
+
+    got = pos[:int(count)].to(torch.int64)
+    i = torch.arange(got.numel(), device=got.device, dtype=torch.int64)
+    return [got.numel(), int((got * (i % 65521 + 1)).sum())]
+
+
+def compact_worker(tree: str, dev) -> None:
+    import numpy as np
+    import torch
+
+    import pfac_tpu_torch as pt
+    from pfac_tpu_torch import trace
+    from pfac_tpu_torch.backends import compact, pipeline, sieve
+    from pfac_tpu_torch.backends.sieve_matcher import npad_for
+
+    rs = _rulesets()
+    pats = rs.snort_like_patterns()
+    m = pt.Matcher(pats, device=dev)
+    dense = torch.from_numpy(rs.pattern_stream(
+        np.random.default_rng(20), pats, 64 * MB)).to(dev)   # as k2_worker
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    text = torch.randint(32, 127, (192 * MB,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    _corpora().plant(text, pats, 0.015, np.random.default_rng(19))
+    allmatch = torch.full((100 * MB,), ord("a"), dtype=torch.uint8,
+                          device=dev)
+    counted = "compact_wordwise_chunks" in getattr(trace, "DEVICE_KEYS", ())
+    for name, mt, d in (("pattern_stream_64MB", m, dense), ("text", m, text),
+                        ("all_match", pt.Matcher([b"aaaa"], device=dev),
+                         allmatch)):
+        eng = mt._engine()
+        n = d.shape[0]
+        block = eng.tile_rows * 128
+        mt.match_device(d)
+        wordwise = None
+        if counted:
+            before = trace.device_counters()["compact_wordwise_chunks"]
+            mt.match_device(d)
+            wordwise = (trace.device_counters()["compact_wordwise_chunks"]
+                        - before)
+        kernels = _kernels(lambda: mt.match_device(d), reps=20)
+        _, bits, counts = sieve.sieve(d, n, npad_for(n), eng._sieve)
+        cases = [(False, pipeline.threshold(eng._walk, block), kernels)]
+        if name == "all_match":
+            cases.append((True, block + 1, _kernels(
+                lambda: compact.compact(bits, counts, block + 1), reps=20)))
+        for disarmed, thresh, times in cases:
+            pos, cnt = compact.compact(bits, counts, thresh)
+            print(json.dumps({
+                "tree": tree, "compact": name, "MB": n / MB,
+                "disarmed": disarmed,
+                "compact_ms": next((v for k, v in times.items()
+                                    if "compact_kernel" in k), None),
+                "device_ms": times, "survivors": int(cnt),
+                "wordwise_chunks": None if disarmed else wordwise,
+                "fingerprint": _positions_fingerprint(pos, cnt),
+                "clocks": _clocks()}), flush=True)
+            del pos, cnt
+        del bits, counts
+        torch.cuda.empty_cache()
+
+
 def worker(tree: str, backend: str = "sieve") -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -407,6 +486,9 @@ def worker(tree: str, backend: str = "sieve") -> int:
         return 0
     if backend == "k2":
         k2_worker(tree, dev)
+        return 0
+    if backend == "compact":
+        compact_worker(tree, dev)
         return 0
     t0 = time.perf_counter()
     cases = corpora(pt, dev)
@@ -437,7 +519,7 @@ def main(argv: list[str]) -> int:
     backend = "sieve"
     if argv[:1] == ["--backend"] and len(argv) >= 2:
         backend, argv = argv[1], argv[2:]
-    if not argv or backend not in ("sieve", "xla", "k1", "k2"):
+    if not argv or backend not in ("sieve", "xla", "k1", "k2", "compact"):
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:

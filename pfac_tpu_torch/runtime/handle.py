@@ -235,7 +235,8 @@ class Matcher:
         seconds, span totals while profiled)
         and the device counters (``trace.DEVICE_KEYS``: ``survivors``,
         ``blocks_escaped``, ``short_probes``, ``walk_steps``,
-        ``walk_slots``, ``block_walk_probes``, ``block_walk_positions``),
+        ``walk_slots``, ``block_walk_probes``, ``block_walk_positions``,
+        ``compact_wordwise_chunks``),
         read now. They are the process's: every handle adds to them. A key
         never counted reads 0. This read, and no call, waits for the
         card."""

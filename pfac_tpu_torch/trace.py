@@ -39,7 +39,7 @@ to ``span.<name>.calls`` and ``span.<name>.s``.
   their copy to the device.
 
 **Device counters** (:func:`device_counters`): every program on a device
-adds to that device's seven int64 words on the card (no graph node, no
+adds to that device's eight int64 words on the card (no graph node, no
 host wait): ``survivors``, the positions K1 let through to the walker (the
 scan's total), and ``blocks_escaped``, the blocks K3 walked whole, one
 atomic each a call from ``compact_scan_kernel``; ``short_probes``, the m2
@@ -52,7 +52,11 @@ its grid spent), one atomic each a CTA of K2; ``block_walk_probes``, the
 exact-table probes K3 issued (a dead position's in a batch included: the
 work its batching spends), and ``block_walk_positions``, the positions
 below n of the tiles K3 walked, one atomic each a CTA of K3 that walked
-a tile. The CSR walk counts no steps, and the per-kernel wrappers count
+a tile; ``compact_wordwise_chunks``, the 32-word chunks of the bitmap
+that ``compact_kernel`` listed word by word (the nonempty chunks of a
+warp's round of more than 509 survivors: the escape disarmed, as on the
+CSR tier), one atomic a CTA that listed any. The CSR
+walk counts no steps, and the per-kernel wrappers count
 nothing. Each kernel finds its words by their offsets in the program's
 ``Spec`` (``backends/program.py::counter_words``), so their order is
 written here alone. Reading them copies the words of each device to the
@@ -69,11 +73,12 @@ import torch
 from torch.autograd import profiler as _prof
 
 DEVICE_KEYS = ("survivors", "blocks_escaped", "short_probes", "walk_steps",
-               "walk_slots", "block_walk_probes", "block_walk_positions")
+               "walk_slots", "block_walk_probes", "block_walk_positions",
+               "compact_wordwise_chunks")
 
 _COUNTS: defaultdict = defaultdict(int)
 _TALLIES: dict[tuple, "Tally"] = {}
-_DEVICE: dict[int, torch.Tensor] = {}      # device index -> int64[7]
+_DEVICE: dict[int, torch.Tensor] = {}      # device index -> int64[8]
 _SPAN_KEYS: dict[str, tuple[str, str]] = {}
 
 
@@ -126,7 +131,7 @@ def launches(*kernels: str) -> dict[str, int]:
 
 
 def device_buffer(device: torch.device) -> torch.Tensor:
-    """The device's counter words (int64[7], :data:`DEVICE_KEYS`), made
+    """The device's counter words (int64[8], :data:`DEVICE_KEYS`), made
     zero at the first use; they live as long as the process."""
     index = device.index or 0
     buf = _DEVICE.get(index)

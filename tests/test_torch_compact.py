@@ -141,3 +141,27 @@ def test_capacity_holds_full_blocks_and_a_cut_last_block(armed):
     got = _check(flags, thresh)
     assert len(got) == 3 * most + 997
     assert compact.capacity(4, BLOCK, thresh) - len(got) == most - 997
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1, 300])
+@pytest.mark.parametrize("armed", [True, False])
+def test_wordwise_chunks_plain(extra, armed):
+    # the chunks compact_kernel lists word by word (its device counter):
+    # in a listed block's warp rounds (8 chunks of 32 words at 64K), the
+    # nonempty chunks of a round of more than compact.ROUND_MAX set bits;
+    # a full word in a sparse round is listed lane by lane, and a dense
+    # block's chunks count only with the escape disarmed
+    block = 65536
+    thresh = block // 4 if armed else block + 1
+    rng = np.random.default_rng(extra + 2)
+    flags = np.zeros((4, 8, 8, 1024), np.uint8)   # blocks, warps, chunks
+    rank = rng.random((8, 6 * 1024)).argsort(1).argsort(1)
+    flags[0, :, :6] = (rank < compact.ROUND_MAX + extra).reshape(8, 6, 1024)
+    flags[1, :, 3, :32] = 1                 # a full word, a sparse round
+    flags[2] = 1                            # a dense block
+    assert (flags[0].sum((1, 2)) == compact.ROUND_MAX + extra).all()
+    assert flags[0, :, :6].any(2).all()     # six nonempty chunks a round
+    want = 48 * (extra > 0) + (0 if armed else 64)
+    flags = flags.reshape(-1)
+    assert compact.wordwise_chunks_plain(
+        _bits(flags), _counts(flags, block), thresh) == want

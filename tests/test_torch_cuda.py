@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import pfac_tpu_torch as pt
-from pfac_tpu_torch import trace
+from pfac_tpu_torch import _build, trace
 from pfac_tpu_torch.backends import (block_walk, compact, count, csr_walk,
                                      golden, pipeline, program, reduce, sieve,
                                      sieve_matcher, walk)
@@ -461,26 +461,104 @@ def test_sieve_placement_rule(dev):
                     65536, big, placement="smem")
 
 
-@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.3, 1.0])
-@pytest.mark.parametrize("block", [8192, 65536])
+def _chunk_flags(rng, npad: int, block: int, case: str) -> np.ndarray:
+    """Survivor flags shaped to csrc/compact.cu's rounds: a warp lists its
+    run of block / 256 bitmap words in rounds of up to 8 chunks of 32
+    words, lane by lane where the round holds at most compact.ROUND_MAX
+    set bits, else word by word:
+    * ``round_max``: every round exactly ROUND_MAX bits, so every round is
+      listed lane by lane and fills the warp's stage;
+    * ``round_max_or_above``: every round ROUND_MAX or one bit more at
+      random, so the two ways interleave;
+    * ``full_and_empty``: words all set or all clear, the share of full
+      words drawn a block, so some blocks are listed and some dense."""
+    words = npad // 32
+    if case == "full_and_empty":
+        share = np.repeat(rng.random(npad // block) * 0.4, block // 32)
+        return np.repeat(rng.random(words) < share, 32).astype(np.uint8)
+    flags = np.zeros(((npad // block) * 8, block // 8), np.uint8)  # runs
+    for r in range(0, block // 8, 8192):        # a round: 8 chunks' bits
+        keys = rng.random((len(flags), min(8192, block // 8 - r)))
+        top = compact.ROUND_MAX + (
+            rng.integers(0, 2, size=(len(flags), 1))
+            if case == "round_max_or_above" else 0)
+        flags[:, r:r + 8192] = keys.argsort(1).argsort(1) < top
+    return flags.reshape(-1)
+
+
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.3, 1.0, 0.047,
+                                     "round_max", "round_max_or_above",
+                                     "full_and_empty", "unaligned",
+                                     "sliced_bits"])
+@pytest.mark.parametrize("block", [8192, 65536, 81920])
 def test_compact_kernel_matches_plain(dev, density, block):
-    rng = np.random.default_rng(int(density * 1e4) + block)
+    # the cell's density (0.047), rounds at and one bit above the switch
+    # from lane-wise to word-wise listing, full words among empty ones,
+    # blocks listed at offsets that are not multiples of 4 (a sparse block
+    # of 1 and one of 2 survivors first, then one with a full word in a
+    # sparse round) and a bitmap that is a view off its 16-byte line, in
+    # blocks of 1, 8 and 10 chunks a warp (past 8, a warp reads its later
+    # words again), bit-equal to the plain compaction at each threshold,
+    # with the chunks listed word by word equal to the host's recount
+    seed = (int(density * 1e4) if isinstance(density, float)
+            else len(density)) + block
+    rng = np.random.default_rng(seed)
     npad = 37 * block
-    flags = torch.from_numpy((rng.random(npad) < density).astype(np.uint8))
-    if density < 1.0:
+    if isinstance(density, float) or density in ("unaligned",
+                                                  "sliced_bits"):
+        p = density if isinstance(density, float) else 0.047
+        flags = (rng.random(npad) < p).astype(np.uint8)
+    else:
+        flags = _chunk_flags(rng, npad, block, density)
+    if density == "unaligned":
+        flags[:2 * block] = 0
+        flags[[77, block + 5, block + 4000]] = 1
+        flags[2 * block + 64:2 * block + 96] = 1     # a full word, sparse
+    flags = torch.from_numpy(flags)
+    if density != 1.0:
         flags[5 * block:6 * block] = 1          # one dense block
     flags[-1] = 1                       # the last word of the last block
     flags = flags.to(dev)
     bits = sieve.pack_bits(flags)
+    if density == "sliced_bits":
+        bits = torch.cat([bits[:1], bits])[1:]
+        assert bits.data_ptr() % 16 == 4
     counts = flags.view(-1, block).sum(1, dtype=torch.int32)
+    if density == "unaligned":
+        starts = torch.cumsum(counts, 0) - counts
+        assert (starts[1:3] % 4 != 0).all()
     for thresh in (block // 4, block + 1, 1):
         trace.reset()
-        got, count = compact.compact(bits, counts, thresh)
+        counters = torch.zeros(1, dtype=torch.int64, device=dev)
+        got, count = compact.compact(bits, counts, thresh, counters)
         assert trace.launches(*compact.KERNELS) == {"compact_scan_kernel": 1,
                                                "compact_kernel": 1}
         assert got.numel() == compact.capacity(counts.numel(), block, thresh)
         assert torch.equal(got[:int(count)],
                            compact.compact_plain(bits, counts, thresh))
+        assert int(counters) == compact.wordwise_chunks_plain(bits, counts,
+                                                              thresh)
+
+
+def test_compact_launch_refuses_unaligned_buffers(dev):
+    # compact_kernel loads the bitmap 16 bytes a lane and writes pos in
+    # whole 128-byte lines: a bitmap off 16 bytes or a pos off its line is
+    # refused (cudaErrorInvalidValue), and the aligned call runs
+    block = 65536
+    flags = (torch.rand(2 * block, device=dev) < 0.047).to(torch.uint8)
+    bits = sieve.pack_bits(flags)
+    counts = flags.view(-1, block).sum(1, dtype=torch.int32)
+    offsets = torch.zeros(3, dtype=torch.int32, device=dev)
+    pos = torch.empty(2 * block + 32, dtype=torch.int32, device=dev)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    call = lambda b, p: lib.pfac_compact(
+        dev.index or 0, b, counts.data_ptr(), offsets.data_ptr(), 2, block,
+        block // 4, p, None, stream)
+    assert call(bits.data_ptr() + 4, pos.data_ptr()) == 1
+    assert call(bits.data_ptr(), pos.data_ptr() + 64) == 1
+    assert call(bits.data_ptr(), pos.data_ptr()) == 0
+    torch.cuda.synchronize(dev)
 
 
 def _count_cases(dev, pos: torch.Tensor):
@@ -1540,6 +1618,50 @@ def test_walk_counters_equal_a_host_recount(dev, op):
     assert c["walk_steps"] == want > 0
     assert c["walk_slots"] % 32 == 0
     assert c["walk_steps"] <= c["walk_slots"] < 32 * c["walk_steps"]
+
+
+@pytest.mark.parametrize("case", ["pattern_stream", "csr_all_match"])
+def test_program_lists_the_survivors_in_order(dev, case, monkeypatch):
+    # the program's compaction at the virus-dense cell's density (4 MiB of
+    # the Snort-like set's patterns drawn and concatenated, ~4.7% of
+    # positions survive) and with every position a survivor (b"aaaa" over
+    # `a` on the CSR tier, escape disarmed): the result equals the plain
+    # pipeline's, the survivors the plain compaction's count, the chunks
+    # listed word by word a host recount, and K2's walk steps and lane
+    # slots the recount over the plain compaction's list, which pins its
+    # order
+    n = 4 << 20
+    if case == "pattern_stream":
+        pats = rulesets.snort_like_patterns()
+        host = rulesets.pattern_stream(np.random.default_rng(47), pats, n)
+    else:
+        monkeypatch.setattr(sieve_matcher, "build_walk_tables_gated",
+                            lambda *a: None)
+        pats, host = [b"aaaa"], np.full(n, ord("a"), np.uint8)
+    m = pt.Matcher(pats, device=dev)
+    eng = m._engine()
+    assert (eng._walk is None) == (case == "csr_all_match")
+    d = torch.from_numpy(host).to(dev)
+    npad = npad_for(n)
+    _, bits, counts = sieve.sieve_plain(d, n, npad, eng._sieve)
+    thresh = pipeline.threshold(eng._walk, eng.tile_rows * 128)
+    exact = compact.compact_plain(bits, counts, thresh)
+    m.match_device(d)
+    trace.reset()
+    res = m.match_device(d)
+    c = m.counters()
+    assert torch.equal(res, pipeline.run(d, n, npad, eng._sieve, eng._walk,
+                                         eng._csr, plain=True))
+    assert c["survivors"] == exact.numel()
+    wordwise = compact.wordwise_chunks_plain(bits, counts, thresh)
+    assert c["compact_wordwise_chunks"] == wordwise
+    if case == "csr_all_match":
+        assert exact.numel() >= n - 3 and wordwise == n // 1024
+        return
+    assert 0.03 < exact.numel() / n < 0.07
+    each = walk.walk_steps_each_plain(d, n, exact, eng._walk)
+    assert c["walk_steps"] == int(each.sum())
+    assert c["walk_slots"] == _slots_plain(each, walk.grid(eng._walk, dev))
 
 
 def test_one_warp_of_survivors_spends_its_longest_walk(dev):

@@ -188,8 +188,8 @@ def test_spec_and_counted_kernels(engines, card, name, tier_kernels):
     geo = program.geometry(eng._sieve, eng._walk, eng._csr, npad_for(8 << 20),
                            BLOCK, card, shards=3, count=True)
     prog = program.Program(geo, eng._sieve, eng._walk, eng._csr, card)
-    # 24 int32 fields, 7 int64 fields, 8 pointers
-    assert ctypes.sizeof(program.Spec) == 24 * 4 + 7 * 8 + 8 * 8
+    # 25 int32 fields (and 4 bytes of padding), 7 int64 fields, 8 pointers
+    assert ctypes.sizeof(program.Spec) == 25 * 4 + 4 + 7 * 8 + 8 * 8
     for field, _ in program.Spec._fields_:
         value = getattr(prog.spec, field)
         if field == "counters":         # the device's words, at the build
@@ -245,7 +245,8 @@ def test_counter_words_follow_the_device_keys(monkeypatch):
     for field, keys in program.COUNTERS.items():
         at = words[field]
         assert trace.DEVICE_KEYS[at:at + len(keys)] == keys
-    assert words["block_walk_word"] == 5 and len(trace.DEVICE_KEYS) == 7
+    assert words["block_walk_word"] == 5 and words["compact_word"] == 7
+    assert len(trace.DEVICE_KEYS) == 8
     assert _c_spec_fields() == [f for f, _ in program.Spec._fields_]
     monkeypatch.setattr(trace, "DEVICE_KEYS", (
         "survivors", "blocks_escaped", "short_probes", "walk_steps",

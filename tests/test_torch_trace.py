@@ -121,7 +121,8 @@ def test_counters_count_time_and_reset():
                                        "short_probes": 0, "walk_steps": 0,
                                        "walk_slots": 0,
                                        "block_walk_probes": 0,
-                                       "block_walk_positions": 0}
+                                       "block_walk_positions": 0,
+                                       "compact_wordwise_chunks": 0}
 
 
 def test_handle_counters_read_the_set_up():
